@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port of the G-GPU simulator on one NVIDIA card.
+"""Drive the PyTorch/H100 port on one NVIDIA card: the G-GPU simulator's
+main path and the RecurrentGemma-2B serving path.
 
     python3 chip_smoke.py
 
@@ -7,21 +8,46 @@ Phases, each fatal on any mismatch:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions;
-  2. build: nvcc builds the CUDA kernel pe_execute from
-     src/repro_torch/kernels/csrc/ for sm_90a;
-  3. kernel: pe_execute against its plain PyTorch version (select_alu) on
-     the card, bit-exact, on all 32 opcodes with int32 edge operands and on
-     random inputs at the main path's shapes (1x1, 64x64, 1024x64), with and
-     without an opcode mask; timed with CUDA events;
-  4. main path: the paper's benches at Table III sizes through run_kernel
+  2. build: nvcc builds the CUDA kernels pe_execute, flash_attention and
+     rglru_scan from src/repro_torch/kernels/csrc/ for sm_90a, one nvcc
+     per source, all started together;
+  3. kernels: pe_execute against its plain PyTorch version (select_alu)
+     bit-exact, on all 32 opcodes with int32 edge operands and on random
+     inputs at the main path's shapes; flash_attention against
+     attention_ref at RecurrentGemma-2B's prefill shape, the SmolLM-360M
+     shape and the shapes of tests/test_kernels.py (max |err| 2e-5 f32,
+     2e-2 bf16; per query row over its largest |o| 1e-5 f32, 1e-2 bf16),
+     and a planted fault, the window one key short, must fail them;
+     rglru_scan against rglru_scan_ref at (4, 3072, 2560) and the test
+     shapes (1e-5) and split-and-carry (1e-4); each timed with CUDA events
+     at its main-path shape beside its plain version, its bound and, for
+     attention, one PyTorch call (scaled_dot_product_attention, a
+     yardstick the port never calls);
+  4. simulator: the paper's benches at Table III sizes through run_kernel
      on the card; each run's output slice must equal the bench's numpy
      reference, and its cycles, instrs, mem_ops, hits, misses, steps and
      the sha256 of its final memory must equal the JAX reference's result
-     in src/repro_torch/ggpu/golden_runs.json;
-  5. fold: run_kernel_cohort of 8 fir images and run_kernel_batch of
-     [copy, vec_mul, div_int], each launch against the golden file and,
-     after the main path's launch count is read, against its single run
-     on the card.
+     in src/repro_torch/ggpu/golden_runs.json; then run_kernel_cohort of 8
+     fir images and run_kernel_batch of [copy, vec_mul, div_int], each
+     launch against the golden file and, after the path's launch count is
+     read, against its single run on the card;
+  5. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
+     numpy-seeded weights, through Engine.generate and the kernels: six
+     prompts (3072 to 37 tokens) in two waves of 4 slots, 16 greedy
+     tokens; prefill logits and tokens against
+     src/repro_torch/models/golden_lm.json, which the JAX package computes
+     on the CPU;
+  6. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
+     weights) on the same traffic through the kernels, timed with CUDA
+     events and no copy of the logits (flash_attention runs 8 and
+     rglru_scan 18 times per prefill wave and neither in decode); then
+     with use_kernels=False on the card, and the kernel path again fed
+     the plain path's tokens: the logits of every prefill and decode step
+     agree within 0.3, and planted faults (the window halved, the scan fed
+     bf16 inputs) must exceed it.
+
+Matrix products run in full precision wherever the port is compared with
+a reference (no TF32, no reduced-precision bf16 reductions).
 
 Every line but the last is JSON or the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -43,16 +69,27 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import init_model  # noqa: E402
 from repro_torch.ggpu import isa, programs  # noqa: E402
 from repro_torch.ggpu.engine import (GGPUConfig, ScalarConfig,  # noqa: E402
                                      run_kernel, run_kernel_batch,
                                      run_kernel_cohort)
 from repro_torch.ggpu.engine.alu import select_alu  # noqa: E402
-from repro_torch.kernels import pe_simd  # noqa: E402
+from repro_torch.kernels import _build, pe_simd  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.recurrent import linear_scan  # noqa: E402
+from repro_torch.serve.llm import Engine, EngineConfig  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "ggpu" / "golden_runs.json"
+GOLDEN_LM = ROOT / "src" / "repro_torch" / "models" / "golden_lm.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor fp32 rate, data sheet
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 STAT_KEYS = ("cycles", "instrs", "mem_ops", "hits", "misses", "steps")
 
 
@@ -89,7 +126,138 @@ BATCH_RUNS = tuple(Run(f"4cu/shared/{n}", n, "gpu", {"n_cus": 4})
                    for n in ("copy", "vec_mul", "div_int"))
 ALL_RUNS = MAIN_RUNS + COHORT_RUNS + BATCH_RUNS
 REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
-           "each) are left out until rounds are captured in CUDA graphs"]
+           "each) are left out until rounds are captured in CUDA graphs",
+           "LM golden run: recurrentgemma-2b n_layers 26 -> 3 (one "
+           "(rglru, rglru, local) unit) at f32 compute, so that the JAX "
+           "package can compute the golden file on a CPU; full width",
+           "LM main path: the full 26-layer model is held against its own "
+           "plain path on the card, not against the JAX package"]
+
+# The LM serving path: RecurrentGemma-2B, numpy-seeded weights, six
+# prompts of seeded token ids in two waves of 4 slots (the first prefills
+# past the 2048-token window, the second stays under it), 16 greedy tokens.
+LM_ARCH = "recurrentgemma-2b"
+LM_SEED = 0
+LM_LENGTHS = (3072, 2900, 2500, 2049, 600, 37)
+LM_SLOTS = 4
+LM_MAX_NEW = 16
+LM_TOPK = 8
+GOLDEN_LM_LAYERS = 3
+# f32 logits of magnitude ~1-5 after 3 full-width layers: the card and the
+# CPU sum in other orders (cuBLAS, the kernels' tiles, XLA) and agree to
+# ~1e-5 relative; 1e-3 leaves room and still catches any wrong term.
+GOLDEN_TOL = 1e-3
+# bf16 compute, 26 layers, the kernel path fed the plain path's tokens at
+# every step (teacher forcing); the two paths round attention's output and
+# the scan's input to bf16 at other points. Read on an H100 (PERF.md): the
+# sound kernel path is at most ~0.1 from the plain path in the logits of
+# any step, the path with rglru_scan fed bf16 inputs ~0.9 and with the
+# window halved ~5.6. The limit sits between the sound path and the
+# faults it must catch, about 3x from each.
+BF16_TOL = 0.3
+
+
+def lm_config(golden: bool = False):
+    """The port's RecurrentGemma-2B config of the main path, or the golden
+    run's (3 layers, f32 compute)."""
+    cfg = get_config(LM_ARCH)
+    if golden:
+        cfg = cfg.replace(n_layers=GOLDEN_LM_LAYERS, compute_dtype="float32")
+    return cfg
+
+
+def lm_prompts(vocab: int):
+    g = np.random.default_rng([LM_SEED, 1])
+    return [[int(t) for t in g.integers(0, vocab, n)] for n in LM_LENGTHS]
+
+
+def to_numpy(x) -> np.ndarray:
+    """f32 numpy copy of a torch tensor or a JAX array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def record_generate(engine, prompts, max_new: int, forced=None):
+    """``engine.generate`` (the port's or the JAX package's Engine), with
+    the logits of every ``_sample`` call kept (one call per wave for the
+    prefill, then one per decode step). With ``forced`` (the tokens of
+    another run's calls) each call returns those tokens instead of its own
+    choice: teacher forcing, so that two paths see the same inputs at
+    every step. Returns (tokens, calls) with calls[i] = (logits (rows, V)
+    numpy, the tokens the call returned)."""
+    calls = []
+    sample = engine._sample
+
+    def recording(logits, rng):
+        tok = sample(logits, rng)
+        if forced is not None:
+            tok = torch.as_tensor(forced[len(calls)], device=logits.device)
+        calls.append((to_numpy(logits), [int(t) for t in tok.tolist()]))
+        return tok
+    engine._sample = recording
+    try:
+        out = engine.generate(prompts, max_new)
+    finally:
+        del engine._sample
+    return out, calls
+
+
+def timed_generate(engine, prompts, max_new: int):
+    """``engine.generate`` as a user calls it, with a CUDA event recorded
+    after each ``_sample`` call and the kernels' launch counts read there:
+    no copy of the logits and no sync that ``generate`` does not make
+    itself. Returns (tokens, marks) with marks[i] = (ms since the start,
+    (flash launches, rglru launches))."""
+    marks = []
+    sample = engine._sample
+
+    def marking(logits, rng):
+        tok = sample(logits, rng)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, (fa.LAUNCHES, rg.LAUNCHES)))
+        return tok
+    engine._sample = marking
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    try:
+        out = engine.generate(prompts, max_new)
+    finally:
+        del engine._sample
+    torch.cuda.synchronize()
+    return out, [(start.elapsed_time(ev), n) for ev, n in marks]
+
+
+def per_prompt(calls, n_prompts: int, slots: int, max_new: int):
+    """Split the recorded calls by prompt: for prompt i, its rows of the
+    ``max_new`` logits that chose its generated tokens (the first is the
+    prefill's)."""
+    rows = []
+    for i in range(n_prompts):
+        wave, r = divmod(i, slots)
+        first = wave * max_new
+        rows.append([calls[first + t][0][r] for t in range(max_new)])
+    return rows
+
+
+def summarize(out, calls, prompts):
+    """What the golden file keeps of one generate: per prompt its
+    generated tokens, the top-1/top-2 margin of the logits behind each,
+    and the top-k ids and values of its prefill logits."""
+    out_rows = []
+    for i, rows in enumerate(per_prompt(calls, len(prompts), LM_SLOTS,
+                                        LM_MAX_NEW)):
+        margins = []
+        for logits in rows:
+            top2 = np.sort(logits)[-2:]
+            margins.append(float(top2[1] - top2[0]))
+        ids = np.argsort(-rows[0], kind="stable")[:LM_TOPK]
+        out_rows.append({"tokens": [int(t) for t in out[i][len(prompts[i]):]],
+                         "margins": margins,
+                         "prefill_top_ids": [int(t) for t in ids],
+                         "prefill_top_vals": [float(rows[0][t]) for t in ids]})
+    return out_rows
 
 
 def launch(run: Run, benches):
@@ -231,6 +399,443 @@ def kernel_phase(dev) -> dict:
     return {"max_abs_err": max_err, **timings["1024x64"]}
 
 
+# -- phase 3, continued: the LM kernels against their plain versions --------
+
+# (bh, bhkv, sq, skv, hd, causal, window, dtype): RecurrentGemma-2B's
+# prefill (4 sequences x 10 q heads, 1 kv head), SmolLM-360M's (4 x 15 q
+# heads, 5 kv heads, hd 64, no window) and the shapes of
+# tests/test_kernels.py
+FLASH_PATH = (40, 4, 3072, 3072, 256, True, 2048, torch.bfloat16)
+FLASH_CASES = [
+    FLASH_PATH,
+    (60, 20, 2048, 2048, 64, True, 0, torch.bfloat16),
+    (4, 2, 256, 256, 64, True, 0, torch.float32),
+    (4, 4, 128, 128, 32, False, 0, torch.float32),
+    (8, 2, 200, 200, 64, True, 64, torch.float32),
+    (2, 1, 384, 384, 128, True, 128, torch.float32),
+    (2, 2, 128, 128, 64, True, 0, torch.bfloat16),
+    (6, 3, 96, 160, 64, False, 0, torch.float32),
+]
+# flash_attention's limits: max |err| as the JAX package's tests hold its
+# kernel, and max |err| per query row over the row's largest |o|, since
+# most rows of the 2048-key window average so many keys that |o| is a few
+# 1e-2 there, where the absolute limit alone would pass a wrong kernel.
+# Kernel and plain version both sum in f32 and round the result, so at
+# bf16 they may differ by one bf16 ulp, at most 2**-7 = 7.8e-3 of the
+# row's largest |o|: the limit is 1e-2 (at f32, 1e-5, ~1e-6 is seen).
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+RGLRU_PATH = (4, 3072, 2560)
+RGLRU_CASES = [RGLRU_PATH, (1, 64, 128), (3, 100, 96), (2, 17, 40)]
+SPLIT_CASES = [(2, 1), (7, 3), (30, 2), (3072, 4)]     # (S, B), D = 16
+
+
+def _normal(shape, seed, dev, dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal(shape, np.float32)
+    return torch.as_tensor(x, device=dev).to(dtype)
+
+
+def _flash_inputs(case, dev, seed=0):
+    bh, bhkv, sq, skv, hd, _, _, dtype = case
+    return (_normal((bh, sq, hd), seed, dev, dtype),
+            _normal((bhkv, skv, hd), seed + 1, dev, dtype),
+            _normal((bhkv, skv, hd), seed + 2, dev, dtype))
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask keeps: the work attention needs."""
+    q = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros_like(q)
+    hi = np.minimum(q, skv - 1) if causal else np.full_like(q, skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _sdpa(q, k, v, causal, window, bsz):
+    """One PyTorch call for the same attention, as a yardstick only: the
+    port never calls it. (BH, S, hd) -> (B, H, S, hd) views; an explicit
+    boolean mask carries causality and the window."""
+    bh, sq, hd = q.shape
+    bhkv, skv, _ = k.shape
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q.view(bsz, bh // bsz, sq, hd),
+                        k.view(bsz, bhkv // bsz, skv, hd),
+                        v.view(bsz, bhkv // bsz, skv, hd), attn_mask=mask,
+                        scale=hd ** -0.5, enable_gqa=True)
+
+
+def _flash_errs(got, want):
+    """(max |err|, the largest over query rows of max |err| in the row
+    over the row's largest |want|)."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    return float(d.max()), float((d.amax(-1) / scale).max())
+
+
+def flash_phase(dev) -> dict:
+    errs, row_errs = {}, {}
+    for case in FLASH_CASES:
+        bh, bhkv, sq, skv, hd, causal, window, dtype = case
+        q, k, v = _flash_inputs(case, dev)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window,
+                             scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        name = "x".join(map(str, case[:5])) + f"/c{int(causal)}/w{window}" \
+            + f"/{str(dtype)[6:]}"
+        errs[name], row_errs[name] = _flash_errs(got, want)
+        tol, rtol = FLASH_ATOL[dtype], FLASH_ROW_RTOL[dtype]
+        check(errs[name] <= tol and row_errs[name] <= rtol,
+              f"flash_attention {name}: max |err| {errs[name]} (limit "
+              f"{tol}), per row {row_errs[name]} of its max |o| (limit "
+              f"{rtol})")
+        if case is FLASH_PATH:
+            # a planted fault: the kernel's result against a window one key
+            # short must fail the limits
+            short = attention_ref(q, k, v, causal=causal, window=window - 1,
+                                  scale=hd ** -0.5)
+            fault = _flash_errs(got, short)
+            check(fault[0] > tol or fault[1] > rtol,
+                  f"flash_attention {name}: a window one key short passes "
+                  f"the limits (max |err| {fault[0]}, per row {fault[1]})")
+    bh, bhkv, sq, skv, hd, causal, window, dtype = FLASH_PATH
+    q, k, v = _flash_inputs(FLASH_PATH, dev, seed=5)
+    pairs = visible_pairs(sq, skv, causal, window) * bh
+    flops = 4 * hd * pairs                       # QK and PV, 2 per MAC
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kernel = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa
+                                        window=window)
+    plain = lambda: attention_ref(q, k, v, causal=causal,  # noqa: E731
+                                  window=window, scale=hd ** -0.5)
+    library = _sdpa(q, k, v, causal, window, bsz=4)
+    lib_err = float((library().reshape(q.shape).float()
+                     - kernel().float()).abs().max())
+    timing = {"ms": _device_ms(kernel, 5), "plain_ms": _device_ms(plain, 2),
+              "library_ms": _device_ms(library, 5),
+              "bound_ms": max(ops_ms, bytes_ms),
+              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+              "flops": flops, "bytes": nbytes, "visible_pairs": pairs,
+              "library_vs_kernel_max_abs": lib_err,
+              "max_abs_err": errs[next(iter(errs))],
+              "max_row_rel_err": row_errs[next(iter(row_errs))],
+              "planted_window_short": {"max_abs_err": fault[0],
+                                       "max_row_rel_err": fault[1]}}
+    emit({"kernel_phase": {"flash_attention": {
+        "cases": errs, "row_rel": row_errs,
+        "limits": {"f32": [FLASH_ATOL[torch.float32],
+                           FLASH_ROW_RTOL[torch.float32]],
+                   "bf16": [FLASH_ATOL[torch.bfloat16],
+                            FLASH_ROW_RTOL[torch.bfloat16]]},
+        "path_shape": timing}}})
+    return timing
+
+
+def rglru_phase(dev) -> dict:
+    errs = {}
+    for i, (b, s, d) in enumerate(RGLRU_CASES):
+        a = torch.sigmoid(_normal((b, s, d), 10 + i, dev))
+        x = _normal((b, s, d), 20 + i, dev)
+        h0 = _normal((b, d), 30 + i, dev)
+        h, hf = rg.rglru_scan(a, x, h0)
+        hr, hfr = rglru_scan_ref(a, x, h0)
+        torch.cuda.synchronize()
+        err = max(float((h - hr).abs().max()), float((hf - hfr).abs().max()))
+        errs[f"{b}x{s}x{d}"] = err
+        check(err <= 1e-5, f"rglru_scan {b}x{s}x{d}: max |err| {err} > 1e-5")
+    for s, b in SPLIT_CASES:
+        a = torch.sigmoid(_normal((b, s, 16), s, dev))
+        x = _normal((b, s, 16), s + 1, dev)
+        h0 = _normal((b, 16), s + 2, dev)
+        cut = max(1, s // 2)
+        h_full, hf_full = rglru_scan_ref(a, x, h0)
+        _, hf1 = rg.rglru_scan(a[:, :cut].contiguous(),
+                               x[:, :cut].contiguous(), h0)
+        h2, hf2 = rg.rglru_scan(a[:, cut:].contiguous(),
+                                x[:, cut:].contiguous(), hf1)
+        err = max(float((hf2 - hf_full).abs().max()),
+                  float((h2 - h_full[:, cut:]).abs().max()))
+        errs[f"split/{b}x{s}x16"] = err
+        check(err <= 1e-4, f"rglru_scan split {b}x{s}: {err} > 1e-4")
+    b, s, d = RGLRU_PATH
+    a = torch.sigmoid(_normal((b, s, d), 40, dev))
+    x = _normal((b, s, d), 41, dev)
+    h0 = _normal((b, d), 42, dev)
+    nbytes = 4 * (3 * b * s * d + 2 * b * d)     # a, b read; h written; h0, hf
+    timing = {"ms": _device_ms(lambda: rg.rglru_scan(a, x, h0), 20),
+              "plain_ms": _device_ms(lambda: rglru_scan_ref(a, x, h0), 1, 2),
+              "plain_model_path_ms": _device_ms(
+                  lambda: linear_scan(a, x, h0), 2),
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "bytes": nbytes, "library_ms": None,
+              "max_abs_err": errs[next(iter(errs))]}
+    emit({"kernel_phase": {"rglru_scan": {"cases": errs,
+                                          "path_shape": timing}}})
+    return timing
+
+
+# -- phases 5 and 6: the LM serving path --------------------------------------
+
+def golden_spec() -> dict:
+    """What the golden file must have been computed for."""
+    return {"arch": LM_ARCH, "n_layers": GOLDEN_LM_LAYERS,
+            "compute_dtype": "float32", "seed": LM_SEED,
+            "lengths": list(LM_LENGTHS), "slots": LM_SLOTS,
+            "max_new": LM_MAX_NEW, "topk": LM_TOPK}
+
+
+def _waves(marks, n_start):
+    """Per wave of ``timed_generate``'s marks: prefill ms, decode ms per
+    step, and the kernels' launches in its prefill and in its decode steps
+    (``n_start``: the launch counts when the run began)."""
+    out = []
+    prev_ms, prev_n = 0.0, n_start
+    for w in range(len(marks) // LM_MAX_NEW):
+        first, last = marks[w * LM_MAX_NEW], marks[(w + 1) * LM_MAX_NEW - 1]
+        out.append({
+            "prefill_ms": first[0] - prev_ms,
+            "decode_ms_per_step": (last[0] - first[0]) / (LM_MAX_NEW - 1),
+            "prefill_launches": [first[1][j] - prev_n[j] for j in (0, 1)],
+            "decode_launches": [last[1][j] - first[1][j] for j in (0, 1)]})
+        prev_ms, prev_n = last[0], last[1]
+    return out
+
+
+def _window_of(new_window):
+    """flash_attention with its window set to ``new_window(window)``."""
+    def wrap(orig):
+        def run(q, k, v, *, causal, window, scale):
+            return orig(q, k, v, causal=causal, window=new_window(window),
+                        scale=scale)
+        return run
+    return wrap
+
+
+def _bf16_scan(orig):
+    """rglru_scan fed a and b rounded to bf16 (h still carried in f32)."""
+    def run(a, b, h0):
+        return orig(a.bfloat16().float(), b.bfloat16().float(), h0)
+    return run
+
+
+# Faults planted in the kernel path to show what the teacher-forced LM
+# comparison can see: (name, module, attribute the model calls, wrapper,
+# whether the comparison must catch it). A window one key short moves the
+# logits no more than bf16 rounding does; the kernel phase catches it.
+LM_FAULTS = (("flash_attention window one key short", kops,
+              "flash_attention", _window_of(lambda w: w - 1), False),
+             ("flash_attention window halved", kops, "flash_attention",
+              _window_of(lambda w: w // 2), True),
+             ("rglru_scan inputs rounded to bf16", rg, "rglru_scan",
+              _bf16_scan, True))
+
+
+def _forced_errs(engine, prompts, ref_calls, fault=None):
+    """|logits - the reference's| per sampling call (each wave's prefill,
+    then every decode step), ``engine`` fed the reference's tokens;
+    ``fault``: an entry of LM_FAULTS to plant for the run."""
+    if fault is not None:
+        _, mod, attr, wrap, _ = fault
+        orig = getattr(mod, attr)
+        setattr(mod, attr, wrap(orig))
+    try:
+        _, calls = record_generate(engine, prompts, LM_MAX_NEW,
+                                   forced=[c[1] for c in ref_calls])
+    finally:
+        if fault is not None:
+            setattr(mod, attr, orig)
+    return [float(np.abs(got[0] - want[0]).max())
+            for got, want in zip(calls, ref_calls)]
+
+
+def _err_summary(errs) -> dict:
+    prefill = errs[::LM_MAX_NEW]
+    decode = [e for i, e in enumerate(errs) if i % LM_MAX_NEW]
+    return {"max": max(errs), "prefill_max": max(prefill),
+            "decode_max": max(decode)}
+
+
+def _matched_steps(tokens, ref_tokens, ref_margins, tol, what):
+    """Tokens equal up to the first step whose reference top-2 margin is
+    under ``tol`` (there the argmax may rightly differ). Returns the
+    number of steps held equal."""
+    for t, (mine, ref, margin) in enumerate(zip(tokens, ref_tokens,
+                                                ref_margins)):
+        if margin < tol:
+            return t
+        check(mine == ref, f"{what}: token {t} is {mine}, reference {ref} "
+              f"(margin {margin})")
+    return len(ref_tokens)
+
+
+def lm_golden(dev) -> None:
+    golden = json.loads(GOLDEN_LM.read_text())
+    check(golden["spec"] == golden_spec(),
+          f"{GOLDEN_LM.name} was made for {golden['spec']}, not "
+          f"{golden_spec()}: regenerate it")
+    cfg = lm_config(golden=True)
+    t0 = time.perf_counter()
+    model = init_model(cfg, LM_SEED, dev)
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    out, calls = record_generate(Engine(cfg, model,
+                                        EngineConfig(slots=LM_SLOTS)),
+                                 prompts, LM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    check(len(calls) == 2 * LM_MAX_NEW, f"{len(calls)} sampling calls")
+    mine = summarize(out, calls, prompts)
+    rows = per_prompt(calls, len(prompts), LM_SLOTS, LM_MAX_NEW)
+    top_err, matched = 0.0, []
+    for i, (ref, got) in enumerate(zip(golden["prompts"], mine)):
+        at_ref = rows[i][0][ref["prefill_top_ids"]]
+        top_err = max(top_err,
+                      float(np.abs(at_ref - ref["prefill_top_vals"]).max()),
+                      float(np.abs(np.asarray(got["prefill_top_vals"])
+                                   - ref["prefill_top_vals"]).max()))
+        matched.append(_matched_steps(got["tokens"], ref["tokens"],
+                                      ref["margins"], GOLDEN_TOL,
+                                      f"golden prompt {i}"))
+    check(top_err <= GOLDEN_TOL, f"golden prefill logits: max |err| "
+          f"{top_err} > {GOLDEN_TOL}")
+    emit({"lm_golden": {"layers": cfg.n_layers, "compute": "float32",
+                        "params": cfg.n_params(), "init_s": init_s,
+                        "wall_s": wall, "prefill_top_max_abs_err": top_err,
+                        "tol": GOLDEN_TOL, "steps_matched": matched,
+                        "of_steps": LM_MAX_NEW}})
+    del model, calls, rows
+    torch.cuda.empty_cache()
+
+
+def lm_main_path(dev) -> tuple:
+    """The full model through the kernels, timed as a user runs it; then
+    its plain path on the card, and the kernel path fed the plain path's
+    tokens (teacher forcing), clean and with each of LM_FAULTS planted.
+    Returns the kernels' (flash, rglru) launches of the timed run."""
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    model = init_model(cfg, LM_SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg.vocab_size)
+    engine = Engine(cfg, model, EngineConfig(slots=LM_SLOTS))
+    t0 = time.perf_counter()
+    engine.generate(prompts, LM_MAX_NEW)      # warm-up: first-use costs
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out, marks = timed_generate(engine, prompts, LM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    launches = (fa.LAUNCHES, rg.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    waves = _waves(marks, (0, 0))
+    n_attn = sum(k != "rglru" for k in cfg.pattern())
+    for w in waves:
+        check(w["prefill_launches"] == [n_attn, cfg.n_layers - n_attn],
+              f"prefill launches {w['prefill_launches']}")
+        check(w["decode_launches"] == [0, 0],
+              f"decode launches {w['decode_launches']}")
+    plain = Engine(cfg.replace(use_kernels=False), model,
+                   EngineConfig(slots=LM_SLOTS))
+    t1 = time.perf_counter()
+    out_p, calls_p = record_generate(plain, prompts, LM_MAX_NEW)
+    plain_wall = time.perf_counter() - t1
+    check((fa.LAUNCHES, rg.LAUNCHES) == launches,
+          "the plain path launched a kernel")
+    errs = _forced_errs(engine, prompts, calls_p)
+    faults = {}
+    for fault in LM_FAULTS:
+        faults[fault[0]] = {**_err_summary(_forced_errs(engine, prompts,
+                                                        calls_p, fault)),
+                            "must_fail": fault[4]}
+    ref = summarize(out_p, calls_p, prompts)
+    matched = [_matched_steps(out[i][len(p):], r["tokens"], r["margins"],
+                              BF16_TOL, f"plain-path prompt {i}")
+               for i, (p, r) in enumerate(zip(prompts, ref))]
+    generated = sum(len(o) - len(p) for o, p in zip(out, prompts))
+    emit({"lm_main_path": {
+        "arch": cfg.name, "layers": cfg.n_layers, "compute": cfg.compute_dtype,
+        "params": cfg.n_params(), "init_s": init_s, "warm_up_s": warm_s,
+        "wall_s": wall,
+        "waves": waves, "generated_tokens": generated,
+        "tokens_per_s": generated / wall, "peak_device_gb": peak / 1e9,
+        "flash_attention_launches": launches[0],
+        "rglru_scan_launches": launches[1],
+        "plain_path_wall_s_with_logit_copies": plain_wall,
+        "forced_logits_max_abs_err_vs_plain": _err_summary(errs),
+        "forced_calls": len(errs), "tol": BF16_TOL,
+        "planted_faults": faults,
+        "steps_matched_vs_plain": matched, "of_steps": LM_MAX_NEW}})
+    check(len(errs) == len(calls_p) == 2 * LM_MAX_NEW,
+          f"{len(errs)} forced sampling calls")
+    check(max(errs) <= BF16_TOL, f"bf16 logits, kernels vs plain (teacher "
+          f"forced, every step): max |err| {max(errs)} > {BF16_TOL}")
+    for name, f in faults.items():
+        check(not f["must_fail"] or f["max"] > BF16_TOL,
+              f"planted fault '{name}' passes the {BF16_TOL} limit "
+              f"(max |err| {f['max']})")
+    lm_profile(model, cfg, prompts[:LM_SLOTS])
+    del model, calls_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
+    """Where the first wave's time goes: its prefill and ``steps`` decode
+    steps, each timed without the profiler and then run under it (device
+    time, device ops, busy share of the unprofiled wall, top kernels)."""
+    plen = max(map(len, prompts))
+    batch = np.zeros((len(prompts), plen), np.int64)
+    for r, p in enumerate(prompts):
+        batch[r, plen - len(p):] = p
+    tokens = torch.from_numpy(batch).to(model.device)
+    cap = plen + 2 * steps + 1
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = M.prefill(model, cfg, tokens=tokens,
+                                                    pad_to=cap)
+
+    def decode(start):
+        def run():
+            for t in range(steps):
+                last = state["logits"].argmax(-1)[:, None]
+                state["logits"], state["cache"] = M.decode_step(
+                    model, cfg, state["cache"], last, start + t)
+        return run
+
+    out = {}
+    with torch.inference_mode():
+        for name, fn, profiled_fn, per in (
+                ("prefill", prefill, prefill, 1),
+                ("decode_step", decode(plen), decode(plen + steps), steps)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            kernels, profiled_ms = _profiled(profiled_fn)
+            busy = _device_ms_of(kernels)
+            out[name] = {
+                "wall_ms": wall_ms / per, "profiled_wall_ms": profiled_ms / per,
+                "device_ms": busy / per, "device_busy_share": busy / wall_ms,
+                "device_ops": len(kernels) / per,
+                "flash_attention_ms": _device_ms_of(kernels, "flash_kernel")
+                / per,
+                "rglru_scan_ms": _device_ms_of(kernels, "rglru_kernel") / per,
+                "top_device_ms": {k: v / per
+                                  for k, v in _top(kernels, 8).items()}}
+    emit({"lm_profile": {"rows": len(prompts), "prompt_len": plen, **out}})
+
+
 # -- phases 4 and 5: the simulator on the card -------------------------------
 
 def _check_run(run: Run, mem, info, expected, out, golden) -> None:
@@ -301,11 +906,38 @@ def verify_folds(pending, dev) -> None:
                   f"{run.key}: {what} launch != its single run")
 
 
+def _profiled(fn):
+    """Run ``fn`` once under torch.profiler. Returns (the device kernels'
+    events, profiled host wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return ([e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA], wall_ms)
+
+
+def _device_ms_of(kernels, match: str = "") -> float:
+    return sum(e.self_device_time_total for e in kernels
+               if match in e.name) / 1e3
+
+
+def _top(kernels, n: int = 6) -> dict:
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0)
+                                + e.self_device_time_total / 1e3)
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
+
+
 def profile_phase(benches, dev, key: str = "8cu/shared/fir") -> None:
     """Where a round's time goes: one run under torch.profiler, its device
     (kernel) time and kernel count per round against the wall time of the
     same run without the profiler."""
-    from torch.profiler import ProfilerActivity, profile
     run = next(r for r in MAIN_RUNS if r.key == key)
     prog, mem0, n, _, _ = launch(run, benches)
     cfg = make_config(run, GGPUConfig, ScalarConfig)
@@ -313,34 +945,24 @@ def profile_phase(benches, dev, key: str = "8cu/shared/fir") -> None:
     run_kernel(prog, mem0, n, cfg, device=dev)        # unprofiled wall time
     wall_ms = (time.perf_counter() - t0) * 1e3
     before = pe_simd.LAUNCHES
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_kernel(prog, mem0, n, cfg, device=dev)
-    profiled_ms = (time.perf_counter() - t0) * 1e3
+    kernels, profiled_ms = _profiled(
+        lambda: run_kernel(prog, mem0, n, cfg, device=dev))
     rounds = pe_simd.LAUNCHES - before
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    pe_ms = sum(e.self_device_time_total for e in kernels
-                if "pe_execute_kernel" in e.name) / 1e3
-    by_name = {}
-    for e in kernels:
-        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0)
-                                + e.self_device_time_total / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    busy_ms = _device_ms_of(kernels)
     emit({"profile": {
         "run": key, "rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
         "profiled_wall_ms_per_round": profiled_ms / rounds,
         "device_ms_per_round": busy_ms / rounds,
         "device_busy_share": busy_ms / wall_ms,   # of the unprofiled wall
         "device_ops_per_round": len(kernels) / rounds,
-        "pe_execute_device_us_per_round": pe_ms / rounds * 1e3,
-        "top_device_ms": dict(top)}})
+        "pe_execute_device_us_per_round":
+            _device_ms_of(kernels, "pe_execute_kernel") / rounds * 1e3,
+        "top_device_ms": _top(kernels)}})
 
 
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file():
+    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
+            or not GOLDEN_LM.is_file():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               "(no src/repro_torch beside this script)", file=sys.stderr)
         return 1
@@ -349,6 +971,10 @@ def main() -> int:
               "card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    # every comparison with a reference runs its matrix products in full
+    # precision: no TF32, no reduced-precision bf16 reductions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -359,11 +985,16 @@ def main() -> int:
                      "capability": list(torch.cuda.get_device_capability(0))}})
 
     t0 = time.perf_counter()
-    pe_simd._lib()
-    emit({"build": {"pe_simd": {"seconds": time.perf_counter() - t0,
-                                "arch": "sm_90a"}}})
+    _build.build_all(["pe_simd", "flash_attention", "rglru_scan"])
+    build_s = time.perf_counter() - t0
+    for lib in (pe_simd._lib, fa._lib, rg._lib):
+        lib()
+    emit({"build": {"seconds": build_s, "arch": "sm_90a", "parallel": True,
+                    "kernels": ["pe_simd", "flash_attention", "rglru_scan"]}})
 
     kernel = kernel_phase(dev)
+    flash = flash_phase(dev)
+    rglru = rglru_phase(dev)
 
     golden = json.loads(GOLDEN.read_text())
     benches = programs.all_benches()
@@ -378,15 +1009,36 @@ def main() -> int:
                         launches}})
     verify_folds(pending, dev)
     profile_phase(benches, dev)
-    emit({"kernels": [{
-        "name": "pe_execute", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pe_simd.cu",
-        "replaces": "src/repro/kernels/pe_simd.py:39",
-        "launches": launches, "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-        "library_ms": None, "shape": [1024, 64], "exact": True}]})
-    check(launches > 0, "the main path launched no pe_execute kernel")
+
+    lm_golden(dev)
+    flash_launches, rglru_launches = lm_main_path(dev)
+
+    emit({"kernels": [
+        {"name": "pe_execute", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pe_simd.cu",
+         "replaces": "src/repro/kernels/pe_simd.py:39",
+         "launches": launches, "max_abs_err": kernel["max_abs_err"],
+         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
+         "library_ms": None, "shape": [1024, 64], "exact": True},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:87",
+         "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"], "shape": list(FLASH_PATH[:7]),
+         "dtype": "bfloat16"},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:47",
+         "launches": rglru_launches, "max_abs_err": rglru["max_abs_err"],
+         "ms": rglru["ms"], "plain_ms": rglru["plain_ms"],
+         "bound_ms": rglru["bound_ms"], "bound_by": rglru["bound_by"],
+         "library_ms": None, "shape": list(RGLRU_PATH), "dtype": "float32"}]})
+    check(launches > 0, "the simulator's path launched no pe_execute kernel")
+    check(flash_launches > 0, "the LM path launched no flash_attention")
+    check(rglru_launches > 0, "the LM path launched no rglru_scan")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,30 @@
+"""Architectures the port runs: ``get_config(arch)`` / ``get_smoke(arch)``.
+
+Each module holds ``CONFIG`` (the published full-size config) and
+``SMOKE`` (a reduced same-family config for CPU tests), copied verbatim
+from the JAX package's ``repro.configs``."""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "smollm-360m": "smollm_360m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def _mod(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; the port has: "
+                       f"{sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str):
+    return _mod(arch).CONFIG
+
+
+def get_smoke(arch: str):
+    return _mod(arch).SMOKE

@@ -5,13 +5,90 @@ configuration, the ISA programs and the memory images. These helpers take
 them as plain data (a config's ``dataclasses.asdict``, a bench's numpy
 arrays), so the two packages run the same machines on the same data
 without the port importing the JAX package.
+
+The language models' state is their parameter tree:
+``params_from_reference`` fills the port's modules from a tree in the
+reference's layout (nested dicts of arrays, each layer group stacked),
+such as ``repro.models.schema.init_params`` gives or
+``models.schema.init_numpy`` makes from a seed.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.ggpu import programs
 from repro_torch.ggpu.engine.config import GGPUConfig, ScalarConfig
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import LM
+from repro_torch.models.schema import init_numpy, layer_groups
+
+
+def load_tree(module, tree, rep=None) -> None:
+    """Copy the leaves of ``tree`` (nested dicts of arrays named as the
+    module's attributes; ``leaf[rep]`` when ``rep`` is given) into
+    ``module``'s parameters. Raises unless every parameter is filled."""
+    filled: set = set()
+    _fill(module, tree, rep, "", filled)
+    _check_filled(module, filled)
+
+
+def _check_filled(module, filled: set) -> None:
+    missing = [n for n, p in module.named_parameters()
+               if id(p) not in filled]
+    if missing:
+        raise KeyError(f"leaves missing from the tree: {missing}")
+
+
+def _fill(module, tree, rep, path, filled):
+    for key, val in tree.items():
+        target = getattr(module, key, None)
+        where = f"{path}/{key}"
+        if target is None:
+            raise KeyError(f"{where}: the port's model has no such leaf")
+        if isinstance(val, dict):
+            _fill(target, val, rep, where, filled)
+            continue
+        arr = np.asarray(val)
+        if rep is not None:
+            arr = arr[rep]
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{where}: shape {arr.shape} != the port's "
+                             f"{tuple(target.shape)}")
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:         # e.g. a view of a jax.Array
+            arr = arr.copy()
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(arr))
+        filled.add(id(target))
+
+
+def params_from_reference(tree, cfg: ModelConfig, device=None) -> LM:
+    """The port's model of ``cfg`` on ``device`` (the card unless the
+    caller asks for the CPU), with the parameters of ``tree``: the
+    reference's pytree, whose group ``gi`` holds each leaf stacked over
+    its ``repeats`` (leaf[r] is the r-th repeat of the unit). Raises on a
+    missing, unknown or misshapen leaf."""
+    model = LM(cfg, device)
+    filled: set = set()
+    top = {k: v for k, v in tree.items() if k != "groups"}
+    _fill(model, top, None, "", filled)
+    layer = 0
+    for gi, (unit, reps) in enumerate(layer_groups(cfg)):
+        group = tree["groups"][str(gi)]
+        for rep in range(reps):
+            for idx in range(len(unit)):
+                _fill(model.layers[layer + rep * len(unit) + idx],
+                      group[str(idx)], rep, f"groups/{gi}/{idx}[{rep}]",
+                      filled)
+        layer += reps * len(unit)
+    _check_filled(model, filled)
+    return model
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
+    """The port's model with the weights ``init_numpy(cfg, seed)`` makes."""
+    return params_from_reference(init_numpy(cfg, seed), cfg, device)
 
 
 def config_from_reference(fields: dict, scalar: bool = False) -> GGPUConfig:

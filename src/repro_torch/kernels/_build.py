@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
 use ``load(name)`` compiles it with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/`` (beside this file; the directory is not
 committed), named by a hash of the source and the flags, and opens it with
-``ctypes``. A library already built from the same source is reused. A
-failed build raises with nvcc's output; nothing falls back.
+``ctypes``. A library already built from the same source is reused.
+``build_all`` starts one nvcc per source, all together. A failed build
+raises with nvcc's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -44,20 +45,38 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built
+    yet, one nvcc process per source, all started together. Returns
+    {name: library path}; raises with nvcc's output if any build fails
+    (after every started nvcc has ended)."""
+    outs = {name: library_path(name) for name in names}
+    todo = {n: p for n, p in outs.items() if not p.exists()}
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}"
-                           f"{proc.stdout}")
-    os.replace(tmp, out)          # atomic: concurrent builds agree
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name} (exit "
+                          f"{proc.returncode}):\n{stderr}{stdout}")
+        else:
+            os.replace(tmp, todo[name])   # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 @functools.cache

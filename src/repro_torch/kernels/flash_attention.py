@@ -1,0 +1,90 @@
+"""Blocked online-softmax attention: the CUDA kernel and its wrapper.
+
+``flash_attention`` is the port of ``repro.kernels.flash_attention.
+flash_attention`` (the Pallas TPU kernel), in its layout: q (BH, Sq, hd),
+k and v (BHkv, Skv, hd) with BH = BHkv * G, q head ``bh`` reading kv head
+``bh // G``. On CUDA tensors it launches ``csrc/flash_attention.cu`` on
+the current stream of the tensors' device, or raises; on CPU tensors it
+runs the plain version ``ref.attention_ref``. ``LAUNCHES`` counts kernel
+launches, so a run can show that it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_ref
+
+LAUNCHES = 0
+MAX_HD = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("flash_attention")
+    lib.flash_attention.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention.restype = ctypes.c_int
+    lib.flash_error_string.argtypes = [ctypes.c_int]
+    lib.flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} must be float32 or "
+                            f"bfloat16 like q, got {t.dtype}")
+        if t.dim() != 3:
+            raise ValueError(f"flash_attention: {name} must be 3-D, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             f"q is on {q.device}")
+    bh, _, hd = q.shape
+    bhkv = k.shape[0]
+    if v.shape != k.shape or k.shape[2] != hd:
+        raise ValueError(f"flash_attention: k, v must be (BHkv, Skv, {hd}), "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if bhkv == 0 or bh % bhkv:
+        raise ValueError(f"flash_attention: {bh} q heads do not fold onto "
+                         f"{bhkv} kv heads")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float = 0.0):
+    """q: (BH, Sq, hd); k, v: (BHkv, Skv, hd) -> (BH, Sq, hd) in q's dtype.
+    ``window`` > 0 keeps keys with kpos > qpos - window; ``scale`` 0
+    means hd ** -0.5."""
+    global LAUNCHES
+    _check(q, k, v)
+    bh, sq, hd = q.shape
+    scale = scale or (1.0 / math.sqrt(hd))
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if hd > MAX_HD:
+        raise ValueError(f"flash_attention: the kernel takes hd <= {MAX_HD}, "
+                         f"got {hd}")
+    bhkv, skv, _ = k.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _lib().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], bh, bhkv, sq, skv, hd, int(causal),
+            int(window), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention launch failed: "
+                           + _lib().flash_error_string(rc).decode())
+    LAUNCHES += 1
+    return out

@@ -1,16 +1,54 @@
-"""Naive PyTorch oracle for the PE execute stage (the counterpart of
-``repro.kernels.ref.pe_alu_ref``).
+"""Naive PyTorch oracles, the counterparts of ``repro.kernels.ref``.
 
-Written independently of ``engine.alu``: every case is computed exactly in
-int64 (where the reference goes through uint32) and wrapped back to int32
-once, so a slip in the int32 tricks of the datapath cannot hide behind
-shared structure.
+  * ``attention_ref`` and ``rglru_scan_ref`` are the plain versions of
+    the CUDA kernels ``flash_attention`` and ``rglru_scan``: deliberately
+    naive (full-matrix masked softmax; a sequential loop), so a kernel bug
+    cannot hide behind shared structure. Their wrappers run them for CPU
+    tensors, and the tests and ``chip_smoke.py`` hold the kernels to them.
+  * ``pe_alu_ref`` is written independently of ``engine.alu``: every case
+    is computed exactly in int64 (where the reference goes through uint32)
+    and wrapped back to int32 once, so a slip in the int32 tricks of the
+    datapath cannot hide behind shared structure.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.ggpu import isa
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool, window: int, scale: float):
+    """q: (BH, Sq, hd); k, v: (BHkv, Skv, hd) with BH = BHkv * G.
+    Naive full-matrix masked softmax attention in f32, q's dtype out."""
+    bh, sq, hd = q.shape
+    bhkv, skv, _ = k.shape
+    g = bh // bhkv
+    qf = q.reshape(bhkv, g, sq, hd).float()
+    s = torch.einsum("bgqd,bkd->bgqk", qf, k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgqk,bkd->bgqd", p, v.float())
+    return o.reshape(bh, sq, hd).to(q.dtype)
+
+
+def rglru_scan_ref(a, b, h0):
+    """Sequential h_t = a_t * h_{t-1} + b_t. a, b: (B, S, D) f32;
+    h0: (B, D). Returns (h (B, S, D), h_final)."""
+    h = h0
+    hs = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs[:, t] = h
+    return hs, h
 
 
 def _wrap32(x):

@@ -1,0 +1,206 @@
+"""Parameter schema (the port's copy of ``repro.models.schema``).
+
+``schema(cfg)`` returns the reference's nested dict of :class:`ParamSpec`
+leaves, in the reference's layout: each repeated layer group is stored
+*stacked*, with a leading ``repeats`` dim. From it come
+  * ``count_params``  : the analytic parameter count
+  * ``init_numpy``    : a parameter tree of numpy arrays made from a seed,
+                        the weights the tests, the golden file's generator
+                        and ``chip_smoke.py`` all build (no file is
+                        downloaded); ``convert.params_from_reference``
+                        turns it into the port's modules.
+
+Ported: attn / swa / local blocks (with their SwiGLU MLP) and rglru
+blocks (no MLP, as in the reference), RMSNorm. mLSTM, sLSTM, MoE, M-RoPE,
+the modality frontends, the GELU MLP and LayerNorm (HuBERT's) are not
+ported yet (ROADMAP.md, "Next slices").
+"""
+from __future__ import annotations
+
+import functools
+import math
+import os
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+
+from repro_torch.models.config import ModelConfig
+
+ATTN_KINDS = ("attn", "swa", "local")
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"              # normal | zeros | ones | lambda_lru
+    scale: float = 1.0
+
+
+def _dense(d_in: int, d_out: int, *, bias: bool = False,
+           scale: float | None = None) -> Dict[str, ParamSpec]:
+    scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
+    out = {"w": ParamSpec((d_in, d_out), "normal", scale)}
+    if bias:
+        out["b"] = ParamSpec((d_out,), "zeros")
+    return out
+
+
+def _norm(d: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((d,), "ones")}
+
+
+def _attn_schema(cfg: ModelConfig) -> Dict:
+    d, hd = cfg.d_model, cfg.hd
+    q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return {"norm": _norm(d),
+            "wq": _dense(d, q_dim, bias=cfg.attn_bias),
+            "wk": _dense(d, kv_dim, bias=cfg.attn_bias),
+            "wv": _dense(d, kv_dim, bias=cfg.attn_bias),
+            "wo": _dense(q_dim, d)}
+
+
+def _mlp_schema(cfg: ModelConfig) -> Dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"norm": _norm(d),
+            "wi": _dense(d, 2 * ff),                          # fused gate|up
+            "wo": _dense(ff, d)}
+
+
+def _rglru_schema(cfg: ModelConfig) -> Dict:
+    """Griffin recurrent block: x -> [conv4 -> RG-LRU] * gelu(gate) -> out."""
+    d, dr = cfg.d_model, cfg.lru_d
+    return {
+        "norm": _norm(d),
+        "wx": _dense(d, dr),                                  # recurrent in
+        "wg": _dense(d, dr),                                  # gate branch
+        "conv": {"w": ParamSpec((cfg.conv_width, dr), "normal", 0.1),
+                 "b": ParamSpec((dr,), "zeros")},
+        "lru": {
+            "lam": ParamSpec((dr,), "lambda_lru"),            # a = σ(Λ)^(c·r)
+            "wa": _dense(dr, dr, scale=1.0 / math.sqrt(dr)),
+            "ba": ParamSpec((dr,), "zeros"),
+            "wi": _dense(dr, dr, scale=1.0 / math.sqrt(dr)),
+            "bi": ParamSpec((dr,), "zeros"),
+        },
+        "wo": _dense(dr, d),
+    }
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    missing = [k for k in dict.fromkeys(cfg.pattern_unit)
+               if k not in ATTN_KINDS + ("rglru",)]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {missing} are not ported yet "
+            "(ROADMAP.md, next slices)")
+
+
+def _block_schema(cfg: ModelConfig, kind: str) -> Dict:
+    s = {"mixer": _rglru_schema(cfg) if kind == "rglru"
+         else _attn_schema(cfg)}
+    if cfg.d_ff > 0 and kind in ATTN_KINDS:
+        s["mlp"] = _mlp_schema(cfg)
+    return s
+
+
+def layer_groups(cfg: ModelConfig):
+    """[(unit_kinds, repeats), ...] covering all n_layers in order."""
+    unit = cfg.pattern_unit
+    reps, rem = divmod(cfg.n_layers, len(unit))
+    groups = []
+    if reps:
+        groups.append((unit, reps))
+    if rem:
+        groups.append((unit[:rem], 1))
+    return groups
+
+
+def _stack(tree, n: int):
+    """Prepend a stacked layer dim to every ParamSpec."""
+    if isinstance(tree, ParamSpec):
+        return ParamSpec((n, *tree.shape), tree.init, tree.scale)
+    return {k: _stack(v, n) for k, v in tree.items()}
+
+
+def schema(cfg: ModelConfig) -> Dict:
+    check_ported(cfg)
+    d = cfg.d_model
+    s: Dict = {"embed": {"w": ParamSpec((cfg.vocab_size, d), "normal",
+                                        0.02)}}
+    groups = {}
+    for gi, (unit, reps) in enumerate(layer_groups(cfg)):
+        g = {str(i): _block_schema(cfg, kind) for i, kind in enumerate(unit)}
+        groups[str(gi)] = _stack(g, reps)
+    s["groups"] = groups
+    s["final_norm"] = _norm(d)
+    if not cfg.tie_embeddings:
+        s["lm_head"] = _dense(d, cfg.vocab_size)
+    return s
+
+
+def leaves(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict, in insertion order; paths are
+    '/'-joined keys."""
+    if not isinstance(tree, dict):
+        yield prefix, tree
+        return
+    for k, v in tree.items():
+        yield from leaves(v, f"{prefix}/{k}" if prefix else k)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in leaves(schema(cfg)))
+
+
+STREAM = 1 << 22        # elements drawn from one seeded stream
+
+
+def _leaf(spec: ParamSpec, seed: int, path: str, jobs: list) -> np.ndarray:
+    """One float32 parameter. A ``normal`` leaf is allocated here and
+    filled by the ``jobs`` it appends, one per stream of ``STREAM``
+    elements, each seeded by (``seed``, the leaf's path, the stream's
+    index): no leaf depends on another, and the streams can be drawn in
+    parallel."""
+    if spec.init == "zeros":
+        return np.zeros(spec.shape, np.float32)
+    if spec.init == "ones":
+        return np.ones(spec.shape, np.float32)
+    key = zlib.crc32(path.encode())
+    if spec.init == "lambda_lru":
+        # a = sigmoid(lam) uniformly in [0.9, 0.999] (Griffin init)
+        u = np.random.default_rng([seed, key]).uniform(0.9, 0.999, spec.shape)
+        return np.log(u / (1 - u)).astype(np.float32)
+    out = np.empty(spec.shape, np.float32)
+    flat = out.reshape(-1)
+    scale = np.float32(spec.scale)
+
+    def fill(i):
+        part = flat[i * STREAM:(i + 1) * STREAM]
+        np.random.default_rng([seed, key, i]).standard_normal(
+            part.size, dtype=np.float32, out=part)
+        part *= scale
+    jobs.extend(functools.partial(fill, i)
+                for i in range(-(-flat.size // STREAM)))
+    return out
+
+
+def init_numpy(cfg: ModelConfig, seed: int = 0) -> Dict:
+    """The parameter tree of ``cfg`` as float32 numpy arrays, in the
+    reference's layout, made from ``seed`` (normal x scale, zeros, ones,
+    and Griffin's Λ). The streams are drawn on a few threads; the result
+    does not depend on their number or order."""
+    jobs: list = []
+
+    def mk(tree, path):
+        if isinstance(tree, ParamSpec):
+            return _leaf(tree, seed, path, jobs)
+        return {k: mk(v, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    tree = mk(schema(cfg), "")
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for done in [pool.submit(job) for job in jobs]:
+            done.result()
+    return tree

@@ -1,6 +1,9 @@
-"""The CUDA kernel on the card: ``pe_execute`` against its plain version
+"""The CUDA kernels on the card: ``pe_execute`` against its plain version
 ``select_alu`` bit for bit, and the simulator's card path against its CPU
-path. Needs an NVIDIA card (sm_90a) and nvcc; skipped without a card.
+path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
+``rglru_scan_ref`` within the tolerances of ``tests/test_kernels.py``, and
+the LM's kernel path against its plain path. Needs an NVIDIA card
+(sm_90a) and nvcc; skipped without a card.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -95,3 +98,136 @@ def test_folded_entry_points_on_card(cuda):
                          run_kernel_batch(*args, cfg, device="cpu")):
         np.testing.assert_array_equal(got[0], want[0])
         assert got[1] == want[1]
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: flash_attention and rglru_scan against their plain
+# versions on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
+
+# (bh, bhkv, sq, skv, hd, causal, window, dtype): the shapes of
+# tests/test_kernels.py, the SmolLM-360M shape (15 q / 5 kv heads, hd 64)
+# and RecurrentGemma-2B's prefill (4 x 10 q heads, 1 kv head, hd 256)
+FLASH_CASES = [
+    (4, 2, 256, 256, 64, True, 0, torch.float32),
+    (4, 4, 128, 128, 32, False, 0, torch.float32),
+    (8, 2, 200, 200, 64, True, 64, torch.float32),
+    (2, 1, 384, 384, 128, True, 128, torch.float32),
+    (2, 2, 128, 128, 64, True, 0, torch.bfloat16),
+    (6, 3, 96, 160, 64, False, 0, torch.float32),
+    (15, 5, 333, 333, 64, True, 0, torch.bfloat16),
+    (40, 4, 3072, 3072, 256, True, 2048, torch.bfloat16),
+]
+
+
+@pytest.fixture
+def exact_matmul(cuda):
+    """Full-precision references: no TF32, no reduced bf16 reductions."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = saved
+
+
+def _normal(shape, seed, dtype, dev):
+    x = np.random.default_rng(seed).standard_normal(shape, np.float32)
+    return torch.as_tensor(x, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(
+    str(v) for v in c[:5]) + f"-c{int(c[5])}-w{c[6]}-{str(c[7])[6:]}")
+def test_flash_attention_on_card(cuda, exact_matmul, case):
+    bh, bhkv, sq, skv, hd, causal, window, dtype = case
+    q = _normal((bh, sq, hd), 1, dtype, cuda)
+    k = _normal((bhkv, skv, hd), 2, dtype, cuda)
+    v = _normal((bhkv, skv, hd), 3, dtype, cuda)
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window,
+                         scale=hd ** -0.5)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5     # tests/test_kernels.py
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 8, 512), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 64, 128), (3, 100, 96), (2, 17, 40),
+                                   (4, 3072, 2560)])
+def test_rglru_scan_on_card(cuda, b, s, d):
+    g = np.random.default_rng(s)
+    a = torch.sigmoid(torch.as_tensor(g.standard_normal((b, s, d),
+                                                        np.float32),
+                                      device=cuda))
+    x = torch.as_tensor(g.standard_normal((b, s, d), np.float32), device=cuda)
+    h0 = torch.as_tensor(g.standard_normal((b, d), np.float32), device=cuda)
+    before = rg.LAUNCHES
+    h, hf = rg.rglru_scan(a, x, h0)
+    assert rg.LAUNCHES == before + 1
+    hr, hfr = rglru_scan_ref(a, x, h0)
+    torch.testing.assert_close(h, hr, rtol=0, atol=1e-5)
+    torch.testing.assert_close(hf, hfr, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,b", [(2, 1), (7, 3), (30, 2)])
+def test_rglru_scan_split_and_carry_on_card(cuda, s, b):
+    g = np.random.default_rng(s * 7 + b)
+    d = 16
+    a = torch.sigmoid(torch.as_tensor(g.standard_normal((b, s, d),
+                                                        np.float32),
+                                      device=cuda))
+    x = torch.as_tensor(g.standard_normal((b, s, d), np.float32), device=cuda)
+    h0 = torch.as_tensor(g.standard_normal((b, d), np.float32), device=cuda)
+    cut = max(1, s // 2)
+    h_full, hf_full = rglru_scan_ref(a, x, h0)
+    _, hf1 = rg.rglru_scan(a[:, :cut].contiguous(), x[:, :cut].contiguous(),
+                           h0)
+    h2, hf2 = rg.rglru_scan(a[:, cut:].contiguous(), x[:, cut:].contiguous(),
+                            hf1)
+    torch.testing.assert_close(hf2, hf_full, rtol=0, atol=1e-4)
+    torch.testing.assert_close(h2, h_full[:, cut:], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])
+def test_lm_kernel_path_equals_plain_path_on_card(cuda, exact_matmul, arch):
+    """The SMOKE model at f32 on the card: prefill through the kernels
+    against the plain path, and the same greedy tokens."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import init_model
+    from repro_torch.models import model as M
+    from repro_torch.serve.llm import Engine, EngineConfig
+    cfg = get_smoke(arch).replace(compute_dtype="float32", use_kernels=True)
+    model = init_model(cfg, 0)
+    g = np.random.default_rng(0)
+    tokens = torch.as_tensor(g.integers(0, cfg.vocab_size, (3, 40)),
+                             device=cuda)
+    before = (fa.LAUNCHES, rg.LAUNCHES)
+    got, _ = M.prefill(model, cfg, tokens=tokens)
+    n_attn = sum(k != "rglru" for k in cfg.pattern())
+    assert (fa.LAUNCHES - before[0], rg.LAUNCHES - before[1]) == (
+        n_attn, cfg.n_layers - n_attn)
+    plain = cfg.replace(use_kernels=False)
+    want, _ = M.prefill(model, plain, tokens=tokens)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    prompts = [list(map(int, g.integers(0, cfg.vocab_size, n)))
+               for n in (30, 5, 17)]
+    assert Engine(cfg, model, EngineConfig(slots=2)).generate(prompts, 6) \
+        == Engine(plain, model, EngineConfig(slots=2)).generate(prompts, 6)

@@ -1,0 +1,255 @@
+"""The port's model layers against the JAX package's, on the CPU, at f32
+compute: norms, RoPE, the MLP, the attention block (prefill, decode, ring
+decode across the window's wrap), the causal conv and the RG-LRU block
+(with and without a carried state), and the prefill-to-decode cache on
+both window branches. Weights and inputs come from numpy with a seed;
+tolerance 1e-5 (f32, sums in another order) unless a case is exact."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import attention as JA
+from repro.models import layers as JL
+from repro.models import model as JM
+from repro.models import recurrent as JR
+from repro.models.config import ModelConfig as JaxConfig
+from repro_torch.configs import get_smoke
+from repro_torch.convert import load_tree
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+from repro_torch.models import recurrent as R
+from repro_torch.models.schema import init_numpy
+
+CFG = get_smoke("recurrentgemma-2b").replace(compute_dtype="float32",
+                                             use_kernels=False)
+TREE = init_numpy(CFG, seed=0)
+UNIT = TREE["groups"]["0"]              # (rglru, rglru, local), stacked
+ATOL = 1e-5
+
+
+def jax_cfg(cfg):
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["use_pallas"] = fields.pop("use_kernels")
+    return JaxConfig(**fields)
+
+
+def sub(tree, rep=0):
+    """One repeat of a stacked subtree, as numpy."""
+    return jax.tree.map(lambda x: np.asarray(x)[rep], tree)
+
+
+def jx(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def module(cls, tree, *args):
+    m = cls(*args, CFG, "cpu") if args else cls(CFG, "cpu")
+    load_tree(m, tree)
+    return m
+
+
+def close(got, want, atol=ATOL):
+    if isinstance(got, torch.Tensor):
+        got = got.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=atol,
+                               rtol=0)
+
+
+def rand(shape, seed):
+    x = np.random.default_rng(seed).standard_normal(shape, np.float32)
+    return torch.from_numpy(x), jnp.asarray(x)
+
+
+def test_apply_norm():
+    g = np.random.default_rng(1)
+    p = {"scale": g.standard_normal(64).astype(np.float32)}
+    m = L.Norm(64, CFG, "cpu")
+    load_tree(m, p)
+    x, jxx = rand((2, 5, 64), 2)
+    close(L.apply_norm(m, x, CFG), JL.apply_norm(jx(p), jxx, jax_cfg(CFG)))
+
+
+@pytest.mark.parametrize("field,value", [("norm", "layernorm"),
+                                         ("mlp", "gelu"), ("n_experts", 4),
+                                         ("pattern_unit", ("mlstm",)),
+                                         ("pattern_unit", ("attn", "slstm"))])
+def test_unported_options_raise(field, value):
+    """An unported block kind is refused naming ROADMAP; the options of
+    the other unported paths are no fields of the port's config, so a
+    config that sets one cannot be built."""
+    if field != "pattern_unit":
+        with pytest.raises(TypeError, match=field):
+            CFG.replace(**{field: value})
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.LM(CFG.replace(**{field: value}), "cpu")
+
+
+def test_apply_rope_halves_not_interleaved():
+    x, jxx = rand((2, 40, 3, 32), 3)
+    pos = np.arange(40)[None, :] + np.array([[0], [2000]])
+    close(L.apply_rope(x, torch.from_numpy(pos), 10_000.0),
+          JL.apply_rope(jxx, jnp.asarray(pos), 10_000.0))
+
+
+def test_apply_mlp_swiglu_gate_first():
+    g = np.random.default_rng(4)
+    ff = CFG.d_ff
+    p = {"norm": {"scale": np.ones(64, np.float32)},
+         "wi": {"w": g.standard_normal((64, 2 * ff), np.float32) / 8},
+         "wo": {"w": g.standard_normal((ff, 64), np.float32) / 11}}
+    m = L.MLP(CFG, "cpu")
+    load_tree(m, p)
+    x, jxx = rand((2, 7, 64), 5)
+    close(L.apply_mlp(m, x, CFG), JL.apply_mlp(jx(p), jxx, jax_cfg(CFG)))
+
+
+@pytest.mark.parametrize("kind,s", [("local", 40), ("local", 9),
+                                    ("attn", 23)])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_attn_block_prefill(kind, s, use_kernels):
+    cfg = CFG.replace(use_kernels=use_kernels)
+    p = sub(UNIT["2"]["mixer"])
+    m = module(A.AttnMixer, p)
+    x, jxx = rand((2, s, 64), 6)
+    out, kv = A.attn_block(m, x, cfg, kind)
+    jout, jkv = JA.attn_block(jx(p), jxx, jax_cfg(cfg), kind)
+    close(out, jout)
+    close(kv.k, jkv.k)
+    close(kv.v, jkv.v)
+
+
+def _decode_run(kind, s0, steps, cap=0):
+    """Prefill s0 tokens, turn (k, v) into the decode cache, then decode
+    ``steps`` tokens one at a time; port and reference side by side."""
+    p = sub(UNIT["2"]["mixer"])
+    m = module(A.AttnMixer, p)
+    jcfg = jax_cfg(CFG)
+    x, jxx = rand((2, s0 + steps, 64), 7)
+    _, kv = A.attn_block(m, x[:, :s0], CFG, kind)
+    _, jkv = JA.attn_block(jx(p), jxx[:, :s0], jcfg, kind)
+    cache = M._prefill_attn_cache(CFG, kind, kv, cap)
+    jcache = JM._prefill_attn_cache(jcfg, kind, jkv, cap)
+    close(cache.k, jcache.k)
+    jstep = jax.jit(lambda pj, xj, cj, pos: JA.attn_block(
+        pj, xj, jcfg, kind, positions=pos[None, None], cache=cj,
+        cache_pos=pos))
+    for t in range(steps):
+        pos = s0 + t
+        xt, jxt = x[:, pos:pos + 1], jxx[:, pos:pos + 1]
+        out, cache = A.attn_block(m, xt, CFG, kind, positions=torch.tensor(
+            [[pos]]), cache=cache, cache_pos=pos)
+        jout, jcache = jstep(jx(p), jxt, jcache, jnp.asarray(pos))
+        close(out, jout)
+    close(cache.k, jcache.k)
+    return out
+
+
+@pytest.mark.parametrize("s0,steps", [(12, 8), (16, 3), (21, 14)])
+def test_attn_block_ring_decode_across_the_wrap(s0, steps):
+    """Window 16: shorter, equal and longer prefills, then decode steps
+    whose ring slot passes position 16 (and 32)."""
+    _decode_run("local", s0, steps)
+
+
+def test_attn_block_full_cache_decode():
+    _decode_run("attn", 10, 6, cap=17)
+
+
+def test_decode_equals_prefill_of_the_longer_sequence():
+    """A ring decode step gives the last row of a prefill over all the
+    tokens (the window masks the same keys)."""
+    p = sub(UNIT["2"]["mixer"])
+    m = module(A.AttnMixer, p)
+    x, _ = rand((2, 30, 64), 8)
+    full, _ = A.attn_block(m, x, CFG, "local")
+    _, kv = A.attn_block(m, x[:, :29], CFG, "local")
+    cache = M._prefill_attn_cache(CFG, "local", kv)
+    out, _ = A.attn_block(m, x[:, 29:], CFG, "local",
+                          positions=torch.tensor([[29]]), cache=cache,
+                          cache_pos=29)
+    torch.testing.assert_close(out, full[:, 29:], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("s", [40, 32, 16, 9])
+def test_prefill_attn_cache_both_window_branches(s):
+    """Longer than the window: the last 16 entries rolled by s % 16;
+    shorter: padded to 16; a full-attention cache pads to pad_to."""
+    k = np.random.default_rng(s).standard_normal((2, s, 1, 4), np.float32)
+    kv = A.KVCache(torch.from_numpy(k), torch.from_numpy(-k))
+    jkv = JA.KVCache(jnp.asarray(k), jnp.asarray(-k))
+    for kind, pad_to in (("local", 0), ("attn", s + 5)):
+        got = M._prefill_attn_cache(CFG, kind, kv, pad_to)
+        want = JM._prefill_attn_cache(jax_cfg(CFG), kind, jkv, pad_to)
+        close(got.k, want.k, 0)
+        close(got.v, want.v, 0)
+    got = M._prefill_attn_cache(CFG, "local", kv)
+    assert got.k.shape[1] == 16
+    if s > 16:            # slot i holds position p with p % 16 == i
+        for pos in range(s - 16, s):
+            torch.testing.assert_close(got.k[:, pos % 16], kv.k[:, pos])
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv(with_state):
+    p = sub(UNIT["0"]["mixer"]["conv"])
+    m = module(R.Conv, p, 4, 64)
+    x, jxx = rand((2, 11, 64), 9)
+    st = jst = None
+    if with_state:
+        buf, jbuf = rand((2, 3, 64), 10)
+        st, jst = R.ConvState(buf), JR.ConvState(jbuf)
+    y, new = R.causal_conv(m, x, st)
+    jy, jnew = JR.causal_conv(jx(p), jxx, jst)
+    close(y, jy)
+    close(new.buf, jnew.buf, 0)
+    assert new.buf.dtype == torch.float32
+
+
+@pytest.mark.parametrize("s,with_state,use_kernels", [
+    (13, False, False), (13, False, True), (13, True, True), (1, True, True)])
+def test_rglru_block(s, with_state, use_kernels):
+    """Prefill (S > 1) through the scan wrapper or ``linear_scan``, and a
+    decode step (S = 1: the plain update even with ``use_kernels``)."""
+    cfg = CFG.replace(use_kernels=use_kernels)
+    p = sub(UNIT["1"]["mixer"])
+    m = module(R.RGLRUMixer, p)
+    x, jxx = rand((2, s, 64), 12)
+    st = jst = None
+    if with_state:
+        h, jh = rand((2, 64), 13)
+        buf, jbuf = rand((2, 3, 64), 14)
+        st = R.RGLRUState(h, R.ConvState(buf))
+        jst = JR.RGLRUState(jh, JR.ConvState(jbuf))
+    out, new = R.rglru_block(m, x, cfg, st)
+    jout, jnew = JR.rglru_block(jx(p), jxx, jax_cfg(cfg), jst)
+    close(out, jout)
+    close(new.h, jnew.h)
+    close(new.conv.buf, jnew.conv.buf)
+
+
+def test_rglru_gate_uses_log_sigmoid():
+    """log_a = 8 r logsigmoid(lam) stays finite where log(sigmoid(lam))
+    underflows: lam = -200 gives a = 0 and the full input gate."""
+    cfg = CFG
+    p = sub(UNIT["1"]["mixer"])
+    p["lru"]["lam"] = np.full(64, -200.0, np.float32)
+    m = module(R.RGLRUMixer, p)
+    x, _ = rand((1, 5, 64), 15)
+    out, st = R.rglru_block(m, x, cfg, None)
+    assert torch.isfinite(out).all() and torch.isfinite(st.h).all()
+
+
+def test_init_cache_shapes():
+    caches = M.init_cache(CFG, 3, 40, device="cpu")
+    assert [type(c).__name__ for c in caches] == ["RGLRUState", "RGLRUState",
+                                                  "KVCache", "RGLRUState",
+                                                  "RGLRUState"]
+    assert caches[2].k.shape == (3, 16, 1, 32)
+    assert caches[0].h.shape == (3, 64) and caches[0].conv.buf.shape == (
+        3, 3, 64)
