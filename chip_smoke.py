@@ -13,11 +13,13 @@ Phases, each fatal on any mismatch:
      per source, all started together;
   3. kernels: pe_execute against its plain PyTorch version (select_alu)
      bit-exact, on all 32 opcodes with int32 edge operands and on random
-     inputs at the main path's shapes; flash_attention against
-     attention_ref at RecurrentGemma-2B's prefill shape, the SmolLM-360M
-     shape and the shapes of tests/test_kernels.py (max |err| 2e-5 f32,
-     2e-2 bf16; per query row over its largest |o| 1e-5 f32, 1e-2 bf16),
-     and a planted fault, the window one key short, must fail them;
+     inputs at the main path's shapes; flash_attention (bf16 on its
+     tensor-core route, f32 on its SIMT route) against attention_ref at
+     RecurrentGemma-2B's prefill shape, the SmolLM-360M shape, the shapes
+     of tests/test_kernels.py and the tensor-core route's edges (max |err|
+     2e-5 f32, 2e-2 bf16; per query row over its largest |o| 1e-5 f32,
+     1e-2 bf16), and a planted fault, the window one key short, must fail
+     them;
      rglru_scan against rglru_scan_ref at (4, 3072, 2560) and the test
      shapes (1e-5) and split-and-carry (1e-4); each timed with CUDA events
      at its main-path shape beside its plain version, its bound and, for
@@ -39,8 +41,9 @@ Phases, each fatal on any mismatch:
      on the CPU;
   6. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
      weights) on the same traffic through the kernels, timed with CUDA
-     events and no copy of the logits (flash_attention runs 8 and
-     rglru_scan 18 times per prefill wave and neither in decode); then
+     events and no copy of the logits (flash_attention runs 8 times per
+     prefill wave, all on its tensor-core route, rglru_scan 18 times, and
+     neither in decode); then
      with use_kernels=False on the card, and the kernel path again fed
      the plain path's tokens: the logits of every prefill and decode step
      agree within 0.3, and planted faults (the window halved, the scan fed
@@ -208,7 +211,7 @@ def timed_generate(engine, prompts, max_new: int):
     after each ``_sample`` call and the kernels' launch counts read there:
     no copy of the logits and no sync that ``generate`` does not make
     itself. Returns (tokens, marks) with marks[i] = (ms since the start,
-    (flash launches, rglru launches))."""
+    launch_counts())."""
     marks = []
     sample = engine._sample
 
@@ -216,7 +219,7 @@ def timed_generate(engine, prompts, max_new: int):
         tok = sample(logits, rng)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        marks.append((ev, (fa.LAUNCHES, rg.LAUNCHES)))
+        marks.append((ev, launch_counts()))
         return tok
     engine._sample = marking
     start = torch.cuda.Event(enable_timing=True)
@@ -227,6 +230,17 @@ def timed_generate(engine, prompts, max_new: int):
         del engine._sample
     torch.cuda.synchronize()
     return out, [(start.elapsed_time(ev), n) for ev, n in marks]
+
+
+def launch_counts() -> tuple:
+    """(flash_attention launches, rglru_scan launches, flash_attention
+    launches on its tensor-core route)."""
+    return fa.LAUNCHES, rg.LAUNCHES, fa.ROUTE_LAUNCHES["tensor_core"]
+
+
+def reset_launch_counts() -> None:
+    fa.LAUNCHES = rg.LAUNCHES = 0
+    fa.ROUTE_LAUNCHES = dict.fromkeys(fa.ROUTE_LAUNCHES, 0)
 
 
 def per_prompt(calls, n_prompts: int, slots: int, max_new: int):
@@ -403,8 +417,11 @@ def kernel_phase(dev) -> dict:
 
 # (bh, bhkv, sq, skv, hd, causal, window, dtype): RecurrentGemma-2B's
 # prefill (4 sequences x 10 q heads, 1 kv head), SmolLM-360M's (4 x 15 q
-# heads, 5 kv heads, hd 64, no window) and the shapes of
-# tests/test_kernels.py
+# heads, 5 kv heads, hd 64, no window), the shapes of
+# tests/test_kernels.py, and the tensor-core route's edges: hd no multiple
+# of 16, a window no multiple of the kv tile (rows meet a fully masked
+# first tile), cross lengths, hd no multiple of 8 (plain loads in place
+# of 16-byte cp.async)
 FLASH_PATH = (40, 4, 3072, 3072, 256, True, 2048, torch.bfloat16)
 FLASH_CASES = [
     FLASH_PATH,
@@ -415,6 +432,10 @@ FLASH_CASES = [
     (2, 1, 384, 384, 128, True, 128, torch.float32),
     (2, 2, 128, 128, 64, True, 0, torch.bfloat16),
     (6, 3, 96, 160, 64, False, 0, torch.float32),
+    (8, 2, 200, 200, 72, True, 64, torch.bfloat16),
+    (10, 1, 1000, 1000, 256, True, 300, torch.bfloat16),
+    (6, 3, 96, 160, 64, False, 0, torch.bfloat16),
+    (3, 1, 130, 130, 33, True, 0, torch.bfloat16),
 ]
 # flash_attention's limits: max |err| as the JAX package's tests hold its
 # kernel, and max |err| per query row over the row's largest |o|, since
@@ -470,6 +491,20 @@ def _sdpa(q, k, v, causal, window, bsz):
                         scale=hd ** -0.5, enable_gqa=True)
 
 
+def issued_pairs(sq: int, skv: int, causal: bool, window: int, bq: int,
+                 bk: int) -> int:
+    """(q, k) pairs the tensor-core route computes per head: whole
+    bq x bk tiles, all that the skip rule keeps."""
+    nk = -(-skv // bk)
+    tiles = 0
+    for q0 in range(0, sq, bq):
+        lo = q0 - window + 1
+        begin = lo // bk if window > 0 and lo > 0 else 0
+        end = min(nk, (min(q0 + bq, sq) - 1) // bk + 1) if causal else nk
+        tiles += max(end - begin, 0)
+    return tiles * bq * bk
+
+
 def _flash_errs(got, want):
     """(max |err|, the largest over query rows of max |err| in the row
     over the row's largest |want|)."""
@@ -511,6 +546,14 @@ def flash_phase(dev) -> dict:
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     ops_ms = flops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    design = fa.tensor_core_design(hd)
+    check(tuple(design[key] for key in ("hd_pad", "block_q", "block_k"))
+          == fa.tensor_core_tiles(hd),
+          f"flash_attention: the built design {design} differs from "
+          f"tensor_core_tiles({hd}) = {fa.tensor_core_tiles(hd)}")
+    # QK once and PV twice (p as two bf16 terms), 2 flops per MAC
+    issued = 6 * hd * bh * issued_pairs(sq, skv, causal, window,
+                                        design["block_q"], design["block_k"])
     kernel = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa
                                         window=window)
     plain = lambda: attention_ref(q, k, v, causal=causal,  # noqa: E731
@@ -518,11 +561,18 @@ def flash_phase(dev) -> dict:
     library = _sdpa(q, k, v, causal, window, bsz=4)
     lib_err = float((library().reshape(q.shape).float()
                      - kernel().float()).abs().max())
-    timing = {"ms": _device_ms(kernel, 5), "plain_ms": _device_ms(plain, 2),
+    ms = _device_ms(kernel, 5)
+    timing = {"ms": ms, "plain_ms": _device_ms(plain, 2),
               "library_ms": _device_ms(library, 5),
+              "route": fa.route(dtype, hd),
+              "tflops": flops / ms * 1e-9,
+              "issued_tflops": issued / ms * 1e-9,
+              "design": {**design, "p": "hi + lo bf16 terms",
+                         "mma": "mma.sync.m16n8k16 bf16, f32 accumulate"},
               "bound_ms": max(ops_ms, bytes_ms),
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-              "flops": flops, "bytes": nbytes, "visible_pairs": pairs,
+              "flops": flops, "issued_flops": issued, "bytes": nbytes,
+              "visible_pairs": pairs,
               "library_vs_kernel_max_abs": lib_err,
               "max_abs_err": errs[next(iter(errs))],
               "max_row_rel_err": row_errs[next(iter(row_errs))],
@@ -534,6 +584,8 @@ def flash_phase(dev) -> dict:
                            FLASH_ROW_RTOL[torch.float32]],
                    "bf16": [FLASH_ATOL[torch.bfloat16],
                             FLASH_ROW_RTOL[torch.bfloat16]]},
+        "tensor_core_designs": {w: fa.tensor_core_design(w)
+                                for w in (64, 128, 256)},
         "path_shape": timing}}})
     return timing
 
@@ -593,8 +645,8 @@ def golden_spec() -> dict:
 
 def _waves(marks, n_start):
     """Per wave of ``timed_generate``'s marks: prefill ms, decode ms per
-    step, and the kernels' launches in its prefill and in its decode steps
-    (``n_start``: the launch counts when the run began)."""
+    step, and the kernels' launches (``launch_counts``) in its prefill and
+    in its decode steps (``n_start``: the counts when the run began)."""
     out = []
     prev_ms, prev_n = 0.0, n_start
     for w in range(len(marks) // LM_MAX_NEW):
@@ -602,8 +654,10 @@ def _waves(marks, n_start):
         out.append({
             "prefill_ms": first[0] - prev_ms,
             "decode_ms_per_step": (last[0] - first[0]) / (LM_MAX_NEW - 1),
-            "prefill_launches": [first[1][j] - prev_n[j] for j in (0, 1)],
-            "decode_launches": [last[1][j] - first[1][j] for j in (0, 1)]})
+            "prefill_launches": [first[1][j] - prev_n[j]
+                                 for j in range(len(prev_n))],
+            "decode_launches": [last[1][j] - first[1][j]
+                                for j in range(len(prev_n))]})
         prev_ms, prev_n = last[0], last[1]
     return out
 
@@ -685,11 +739,15 @@ def lm_golden(dev) -> None:
     model = init_model(cfg, LM_SEED, dev)
     init_s = time.perf_counter() - t0
     prompts = lm_prompts(cfg.vocab_size)
+    before = dict(fa.ROUTE_LAUNCHES)
     t0 = time.perf_counter()
     out, calls = record_generate(Engine(cfg, model,
                                         EngineConfig(slots=LM_SLOTS)),
                                  prompts, LM_MAX_NEW)
     wall = time.perf_counter() - t0
+    routes = {r: n - before[r] for r, n in fa.ROUTE_LAUNCHES.items()}
+    check(routes["simt"] > 0 and routes["tensor_core"] == 0,
+          f"golden run (f32): flash_attention launches by route {routes}")
     check(len(calls) == 2 * LM_MAX_NEW, f"{len(calls)} sampling calls")
     mine = summarize(out, calls, prompts)
     rows = per_prompt(calls, len(prompts), LM_SLOTS, LM_MAX_NEW)
@@ -707,7 +765,8 @@ def lm_golden(dev) -> None:
           f"{top_err} > {GOLDEN_TOL}")
     emit({"lm_golden": {"layers": cfg.n_layers, "compute": "float32",
                         "params": cfg.n_params(), "init_s": init_s,
-                        "wall_s": wall, "prefill_top_max_abs_err": top_err,
+                        "wall_s": wall, "flash_launches_by_route": routes,
+                        "prefill_top_max_abs_err": top_err,
                         "tol": GOLDEN_TOL, "steps_matched": matched,
                         "of_steps": LM_MAX_NEW}})
     del model, calls, rows
@@ -730,26 +789,28 @@ def lm_main_path(dev) -> tuple:
     engine.generate(prompts, LM_MAX_NEW)      # warm-up: first-use costs
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = rg.LAUNCHES = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     out, marks = timed_generate(engine, prompts, LM_MAX_NEW)
     wall = time.perf_counter() - t0
-    launches = (fa.LAUNCHES, rg.LAUNCHES)
+    counts = launch_counts()
+    launches = counts[:2]
     peak = torch.cuda.max_memory_allocated()
-    waves = _waves(marks, (0, 0))
+    waves = _waves(marks, (0, 0, 0))
     n_attn = sum(k != "rglru" for k in cfg.pattern())
     for w in waves:
-        check(w["prefill_launches"] == [n_attn, cfg.n_layers - n_attn],
+        # [flash, rglru, flash on the tensor-core route]: bf16 compute
+        check(w["prefill_launches"] == [n_attn, cfg.n_layers - n_attn,
+                                        n_attn],
               f"prefill launches {w['prefill_launches']}")
-        check(w["decode_launches"] == [0, 0],
+        check(w["decode_launches"] == [0, 0, 0],
               f"decode launches {w['decode_launches']}")
     plain = Engine(cfg.replace(use_kernels=False), model,
                    EngineConfig(slots=LM_SLOTS))
     t1 = time.perf_counter()
     out_p, calls_p = record_generate(plain, prompts, LM_MAX_NEW)
     plain_wall = time.perf_counter() - t1
-    check((fa.LAUNCHES, rg.LAUNCHES) == launches,
-          "the plain path launched a kernel")
+    check(launch_counts() == counts, "the plain path launched a kernel")
     errs = _forced_errs(engine, prompts, calls_p)
     faults = {}
     for fault in LM_FAULTS:
@@ -768,6 +829,7 @@ def lm_main_path(dev) -> tuple:
         "waves": waves, "generated_tokens": generated,
         "tokens_per_s": generated / wall, "peak_device_gb": peak / 1e9,
         "flash_attention_launches": launches[0],
+        "flash_attention_tensor_core_launches": counts[2],
         "rglru_scan_launches": launches[1],
         "plain_path_wall_s_with_logit_copies": plain_wall,
         "forced_logits_max_abs_err_vs_plain": _err_summary(errs),
@@ -786,6 +848,11 @@ def lm_main_path(dev) -> tuple:
     del model, calls_p
     torch.cuda.empty_cache()
     return launches
+
+
+# the kernels' symbols, as the profiler names them: flash_attention's
+# tensor-core (bf16) and SIMT (f32) routes, rglru_scan
+FLASH_SYMBOLS = ("flash_mma_kernel", "flash_simt_kernel")
 
 
 def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
@@ -822,14 +889,21 @@ def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            before = fa.LAUNCHES
             kernels, profiled_ms = _profiled(profiled_fn)
+            flash_launched = fa.LAUNCHES - before
             busy = _device_ms_of(kernels)
+            flash_ms = sum(_device_ms_of(kernels, sym)
+                           for sym in FLASH_SYMBOLS)
+            check(flash_ms > 0 or not flash_launched,
+                  f"lm_profile {name}: {flash_launched} flash_attention "
+                  f"launches but no device time under {FLASH_SYMBOLS}")
             out[name] = {
                 "wall_ms": wall_ms / per, "profiled_wall_ms": profiled_ms / per,
                 "device_ms": busy / per, "device_busy_share": busy / wall_ms,
                 "device_ops": len(kernels) / per,
-                "flash_attention_ms": _device_ms_of(kernels, "flash_kernel")
-                / per,
+                "flash_attention_launches": flash_launched / per,
+                "flash_attention_ms": flash_ms / per,
                 "rglru_scan_ms": _device_ms_of(kernels, "rglru_kernel") / per,
                 "top_device_ms": {k: v / per
                                   for k, v in _top(kernels, 8).items()}}
@@ -1023,12 +1097,15 @@ def main() -> int:
          "library_ms": None, "shape": [1024, 64], "exact": True},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "routes": {"bfloat16": "tensor_core: flash_mma_kernel "
+                                "(mma.sync bf16, f32 accumulate)",
+                    "float32": "simt: flash_simt_kernel (f32 CUDA cores)"},
          "replaces": "src/repro/kernels/flash_attention.py:87",
          "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"], "shape": list(FLASH_PATH[:7]),
-         "dtype": "bfloat16"},
+         "dtype": "bfloat16", "path_route": flash["route"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:47",

@@ -5,8 +5,11 @@ flash_attention`` (the Pallas TPU kernel), in its layout: q (BH, Sq, hd),
 k and v (BHkv, Skv, hd) with BH = BHkv * G, q head ``bh`` reading kv head
 ``bh // G``. On CUDA tensors it launches ``csrc/flash_attention.cu`` on
 the current stream of the tensors' device, or raises; on CPU tensors it
-runs the plain version ``ref.attention_ref``. ``LAUNCHES`` counts kernel
-launches, so a run can show that it went through the kernel.
+runs the plain version ``ref.attention_ref``. The kernel has two routes
+(``route``): bf16 runs on the tensor cores (``flash_mma_kernel``), f32 on
+the CUDA cores (``flash_simt_kernel``). ``LAUNCHES`` counts kernel
+launches and ``ROUTE_LAUNCHES`` splits them by route, so a run can show
+that it went through the kernel and which one.
 """
 from __future__ import annotations
 
@@ -22,6 +25,10 @@ from repro_torch.kernels.ref import attention_ref
 LAUNCHES = 0
 MAX_HD = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "simt"}
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES.values(), 0)
+_DESIGN_KEYS = ("hd_pad", "block_q", "block_k", "stages", "registers",
+                "spill_bytes", "smem_bytes", "blocks_per_sm")
 
 
 @functools.cache
@@ -30,9 +37,43 @@ def _lib():
     lib.flash_attention.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention.restype = ctypes.c_int
+    lib.flash_mma_design.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.flash_mma_design.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def route(dtype, hd: int) -> str:
+    """The kernel route a CUDA tensor of ``dtype`` and head width ``hd``
+    takes, as ``csrc/flash_attention.cu`` dispatches it: "tensor_core"
+    for bf16, "simt" for f32. Raises for what no route takes."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    if not 1 <= hd <= MAX_HD:
+        raise ValueError(f"flash_attention: the kernel takes hd <= {MAX_HD}, "
+                         f"got {hd}")
+    return ROUTES[dtype]
+
+
+def tensor_core_tiles(hd: int) -> tuple:
+    """(padded hd, q rows per block, kv rows per tile) of the tensor-core
+    route for head width ``hd``, as ``flash_mma_kernel`` is instantiated:
+    hd padded to 64, 128 or 256; kv tiles of 64 rows, 32 at 256."""
+    hd_pad = next(w for w in (64, 128, 256) if hd <= w)
+    return hd_pad, 64, 32 if hd_pad > 128 else 64
+
+
+def tensor_core_design(hd: int) -> dict:
+    """The tensor-core route's design as built on the current device:
+    tiles, K/V stages, registers and spilled bytes per thread, shared
+    memory per block, blocks resident per SM (``_DESIGN_KEYS``)."""
+    out = (ctypes.c_int * len(_DESIGN_KEYS))()
+    rc = _lib().flash_mma_design(int(hd), out)
+    if rc != 0:
+        raise RuntimeError("flash_mma_design failed: "
+                           + _lib().flash_error_string(rc).decode())
+    return dict(zip(_DESIGN_KEYS, out))
 
 
 def _check(q, k, v):
@@ -72,9 +113,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if hd > MAX_HD:
-        raise ValueError(f"flash_attention: the kernel takes hd <= {MAX_HD}, "
-                         f"got {hd}")
+    path = route(q.dtype, hd)
     bhkv, skv, _ = k.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -87,4 +126,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError("flash_attention launch failed: "
                            + _lib().flash_error_string(rc).decode())
     LAUNCHES += 1
+    ROUTE_LAUNCHES[path] += 1
     return out

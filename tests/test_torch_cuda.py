@@ -110,8 +110,11 @@ from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
 
 # (bh, bhkv, sq, skv, hd, causal, window, dtype): the shapes of
-# tests/test_kernels.py, the SmolLM-360M shape (15 q / 5 kv heads, hd 64)
-# and RecurrentGemma-2B's prefill (4 x 10 q heads, 1 kv head, hd 256)
+# tests/test_kernels.py, the SmolLM-360M shape (15 q / 5 kv heads, hd 64),
+# RecurrentGemma-2B's prefill (4 x 10 q heads, 1 kv head, hd 256) and the
+# bf16 (tensor-core) route's edges: hd no multiple of 16, a window no
+# multiple of the kv tile, cross lengths, hd no multiple of 8 (plain
+# loads in place of 16-byte cp.async)
 FLASH_CASES = [
     (4, 2, 256, 256, 64, True, 0, torch.float32),
     (4, 4, 128, 128, 32, False, 0, torch.float32),
@@ -121,6 +124,10 @@ FLASH_CASES = [
     (6, 3, 96, 160, 64, False, 0, torch.float32),
     (15, 5, 333, 333, 64, True, 0, torch.bfloat16),
     (40, 4, 3072, 3072, 256, True, 2048, torch.bfloat16),
+    (8, 2, 200, 200, 72, True, 64, torch.bfloat16),
+    (10, 1, 1000, 1000, 256, True, 300, torch.bfloat16),
+    (6, 3, 96, 160, 64, False, 0, torch.bfloat16),
+    (3, 1, 130, 130, 33, True, 0, torch.bfloat16),
 ]
 
 
@@ -149,13 +156,33 @@ def test_flash_attention_on_card(cuda, exact_matmul, case):
     k = _normal((bhkv, skv, hd), 2, dtype, cuda)
     v = _normal((bhkv, skv, hd), 3, dtype, cuda)
     before = fa.LAUNCHES
+    route = "tensor_core" if dtype == torch.bfloat16 else "simt"
+    before_route = fa.ROUTE_LAUNCHES[route]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     assert fa.LAUNCHES == before + 1
+    assert fa.ROUTE_LAUNCHES[route] == before_route + 1
     want = attention_ref(q, k, v, causal=causal, window=window,
                          scale=hd ** -0.5)
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5     # tests/test_kernels.py
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    # per query row, over the row's largest |o| (chip_smoke.py's limit):
+    # one bf16 rounding is at most 2**-7 of it
+    row_rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    d = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    assert float((d / scale).max()) <= row_rtol
+
+
+@pytest.mark.parametrize("hd", [32, 64, 72, 128, 256])
+def test_flash_attention_tensor_core_design_on_card(cuda, hd):
+    """The built tensor-core kernel has the tiles its Python mirror states
+    and fits on an SM without spilling registers."""
+    design = fa.tensor_core_design(hd)
+    assert (design["hd_pad"], design["block_q"], design["block_k"]) \
+        == fa.tensor_core_tiles(hd)
+    assert design["stages"] == 2 and design["blocks_per_sm"] >= 1
+    assert design["spill_bytes"] == 0
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
