@@ -12,27 +12,32 @@ Phases, each fatal on any mismatch:
      rglru_scan from src/repro_torch/kernels/csrc/ for sm_90a, one nvcc
      per source, all started together;
   3. kernels: pe_execute against its plain PyTorch version (select_alu)
-     bit-exact, on all 32 opcodes with int32 edge operands and on random
-     inputs at the main path's shapes; flash_attention (bf16 on its
+     bit-exact on both routes (warp and generic), on all 32 opcodes with
+     int32 edge operands and on random inputs at the main path's shapes
+     and the generic route's edges; flash_attention (bf16 on its
      tensor-core route, f32 on its SIMT route) against attention_ref at
      RecurrentGemma-2B's prefill shape, the SmolLM-360M shape, the shapes
      of tests/test_kernels.py and the tensor-core route's edges (max |err|
      2e-5 f32, 2e-2 bf16; per query row over its largest |o| 1e-5 f32,
      1e-2 bf16), and a planted fault, the window one key short, must fail
      them;
-     rglru_scan against rglru_scan_ref at (4, 3072, 2560) and the test
-     shapes (1e-5) and split-and-carry (1e-4); each timed with CUDA events
-     at its main-path shape beside its plain version, its bound and, for
+     rglru_scan against rglru_scan_ref on both routes (ring and direct)
+     at the path's two prefill shapes, the test shapes and the routes'
+     edges (1e-5) and split-and-carry (1e-4); each timed with CUDA events
+     at its main-path shapes beside its plain version, its bound and, for
      attention, one PyTorch call (scaled_dot_product_attention, a
-     yardstick the port never calls);
+     yardstick the port never calls); the launch routes counted;
   4. simulator: the paper's benches at Table III sizes through run_kernel
      on the card; each run's output slice must equal the bench's numpy
      reference, and its cycles, instrs, mem_ops, hits, misses, steps and
      the sha256 of its final memory must equal the JAX reference's result
      in src/repro_torch/ggpu/golden_runs.json; then run_kernel_cohort of 8
      fir images and run_kernel_batch of [copy, vec_mul, div_int], each
-     launch against the golden file and, after the path's launch count is
-     read, against its single run on the card;
+     launch against the golden file and, after the path's launch counts
+     are read (every L = 64 launch on pe_execute's warp route), against
+     its single run on the card; pe_execute then timed at every (W, L) the
+     path launched it at, on both routes and as an empty launch of the
+     same grid (the launch floor), weighted by the path's launches;
   5. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
      numpy-seeded weights, through Engine.generate and the kernels: six
      prompts (3072 to 37 tokens) in two waves of 4 slots, 16 greedy
@@ -42,8 +47,8 @@ Phases, each fatal on any mismatch:
   6. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
      weights) on the same traffic through the kernels, timed with CUDA
      events and no copy of the logits (flash_attention runs 8 times per
-     prefill wave, all on its tensor-core route, rglru_scan 18 times, and
-     neither in decode); then
+     prefill wave, all on its tensor-core route, rglru_scan 18 times, all
+     on its ring route, and neither in decode); then
      with use_kernels=False on the card, and the kernel path again fed
      the plain path's tokens: the logits of every prefill and decode step
      agree within 0.3, and planted faults (the window halved, the scan fed
@@ -234,13 +239,16 @@ def timed_generate(engine, prompts, max_new: int):
 
 def launch_counts() -> tuple:
     """(flash_attention launches, rglru_scan launches, flash_attention
-    launches on its tensor-core route)."""
-    return fa.LAUNCHES, rg.LAUNCHES, fa.ROUTE_LAUNCHES["tensor_core"]
+    launches on its tensor-core route, rglru_scan launches on its ring
+    route)."""
+    return (fa.LAUNCHES, rg.LAUNCHES, fa.ROUTE_LAUNCHES["tensor_core"],
+            rg.ROUTE_LAUNCHES["ring"])
 
 
 def reset_launch_counts() -> None:
     fa.LAUNCHES = rg.LAUNCHES = 0
     fa.ROUTE_LAUNCHES = dict.fromkeys(fa.ROUTE_LAUNCHES, 0)
+    rg.ROUTE_LAUNCHES = dict.fromkeys(rg.ROUTE_LAUNCHES, 0)
 
 
 def per_prompt(calls, n_prompts: int, slots: int, max_new: int):
@@ -356,6 +364,17 @@ def _eager_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _turns_ms(fns: dict, iters: int) -> dict:
+    """``_device_ms`` of each of ``fns`` ({name: fn}), timed in turns
+    (a, b, c, c, b, a): the mean of each one's two turns, so that a drift
+    over the measurement favours none of them."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for name in order + order[::-1]:
+        times[name].append(_device_ms(fns[name], iters))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
 def _device_ms(fn, iters: int, reps: int = 5) -> float:
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
     graph and replayed, so no host work sits between the launches."""
@@ -377,40 +396,107 @@ def _device_ms(fn, iters: int, reps: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def _offset(x):
+    """``x`` copied to a base one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def kernel_phase(dev) -> dict:
+    """pe_execute against select_alu bit for bit on both routes: every
+    case on the route the wrapper picks (its counter must move), and every
+    case the warp route takes on the generic route too."""
     cases = [("edges", _edge_inputs(dev), None)]
     mask = frozenset({isa.ADD, isa.MUL, isa.DIV, isa.SRL, isa.LUI})
-    for W, L in ((1, 1), (64, 64), (1024, 64)):
+    for W, L in ((1, 1), (64, 64), (1024, 64), (8, 64), (9, 96), (37, 5),
+                 (5, 3), (7, 48)):
         for ops in (None, mask):
             cases.append((f"{W}x{L}" + ("/mask" if ops else ""),
                           _random_inputs(W, L, W + L, dev), ops))
-    max_err = 0
+    op, imm, a, b = _random_inputs(64, 64, 3, dev)
+    cases.append(("64x64/offset", (op, imm, _offset(a), _offset(b)), None))
+    max_err, by_route = 0, dict.fromkeys(pe_simd.ROUTES, 0)
     for name, (op, imm, a, b), ops in cases:
-        got = pe_simd.pe_execute(op, imm, a, b, ops)
         want = select_alu(op, a, b, imm, ops)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"pe_execute != select_alu on {name}")
-    timings = {}
-    for W, L in ((64, 64), (1024, 64)):
-        op, imm, a, b = _random_inputs(W, L, 7, dev)
-        nbytes = 4 * (2 * W + 3 * W * L)      # op, imm read; a, b read; out
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = W * L / CUDA_CORE_OPS_PER_S * 1e3    # one select per lane
-        kernel = lambda: pe_simd.pe_execute(op, imm, a, b)  # noqa: E731
-        plain = lambda: select_alu(op, a, b, imm)            # noqa: E731
-        timings[f"{W}x{L}"] = {
-            "ms": _device_ms(kernel, 100), "plain_ms": _device_ms(plain, 10),
-            "eager_ms": _eager_ms(kernel, 200),
-            "plain_eager_ms": _eager_ms(plain, 20),
-            "bound_ms": max(bytes_ms, ops_ms),
+        path = pe_simd.route(*a.shape)
+        paths = ("warp", "generic") if path == "warp" else ("generic",)
+        for i, p in enumerate(paths):
+            before = dict(pe_simd.ROUTE_LAUNCHES)
+            got = (pe_simd.pe_execute(op, imm, a, b, ops) if i == 0
+                   else pe_simd.pe_execute_on(p, op, imm, a, b, ops))
+            torch.cuda.synchronize()
+            moved = {r: n - before[r]
+                     for r, n in pe_simd.ROUTE_LAUNCHES.items()}
+            check(moved == {r: int(r == p) for r in pe_simd.ROUTES},
+                  f"pe_execute {name}: launches by route {moved}, want {p}")
+            by_route[p] += 1
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want),
+                  f"pe_execute ({p} route) != select_alu on {name}")
+    emit({"kernel_phase": {"pe_execute": {
+        "exact": True, "cases": len(cases), "checks_by_route": by_route,
+        "max_abs_err": max_err}}})
+    return {"max_abs_err": max_err}
+
+
+def pe_bound(W: int, L: int) -> dict:
+    nbytes = 4 * (2 * W + 3 * W * L)      # op, imm read; a, b read; out
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = W * L / CUDA_CORE_OPS_PER_S * 1e3    # one select per lane
+    return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes}
-    emit({"kernel_phase": {"pe_execute": {"exact": True, "cases": len(cases),
-                                          "max_abs_err": max_err,
-                                          "shapes": timings}}})
-    return {"max_abs_err": max_err, **timings["1024x64"]}
+
+
+def pe_shapes_phase(dev, by_shape: dict) -> dict:
+    """pe_execute timed at every (W, L) the main path launched it at, in
+    turns: the route the wrapper picks, the generic route (the first
+    design), the launch floor (an empty kernel with the same arguments and
+    grid); the bound; launch-weighted sums over the path. At 1024 x 64, the largest
+    shape, also the plain version and eager launches from the host."""
+    shapes = {}
+    for (W, L), n in sorted(by_shape.items(), key=lambda kv: -kv[1]):
+        op, imm, a, b = _random_inputs(W, L, 7, dev)
+        path = pe_simd.route(W, L)
+        out = torch.empty_like(a)
+        shapes[f"{W}x{L}"] = {
+            "launches": n, "route": path, **_turns_ms({
+                "ms": lambda: pe_simd.pe_execute(op, imm, a, b),
+                "generic_ms": lambda: pe_simd.pe_execute_on(
+                    "generic", op, imm, a, b),
+                "launch_floor_ms": lambda: pe_simd.launch_floor(
+                    path, op, imm, a, b, out)}, 100),
+            **pe_bound(W, L)}
+    W, L = 1024, 64
+    op, imm, a, b = _random_inputs(W, L, 7, dev)
+    out = torch.empty_like(a)
+    kernel = lambda: pe_simd.pe_execute(op, imm, a, b)  # noqa: E731
+    plain = lambda: select_alu(op, a, b, imm)            # noqa: E731
+    largest = {
+        **_turns_ms({"ms": kernel,
+                     "generic_ms": lambda: pe_simd.pe_execute_on(
+                         "generic", op, imm, a, b),
+                     "launch_floor_ms": lambda: pe_simd.launch_floor(
+                         "warp", op, imm, a, b, out)}, 100),
+        "plain_ms": _device_ms(plain, 10), "eager_ms": _eager_ms(kernel, 200),
+        "plain_eager_ms": _eager_ms(plain, 20), **pe_bound(W, L)}
+
+    def total(key):
+        return sum(v["launches"] * v[key] for v in shapes.values())
+    weighted = {"launches": sum(v["launches"] for v in shapes.values()),
+                "ms": total("ms"), "generic_ms": total("generic_ms"),
+                "launch_floor_ms": total("launch_floor_ms"),
+                "bound_ms": total("bound_ms")}
+    weighted["gap_ms"] = weighted["ms"] - weighted["bound_ms"]
+    weighted["generic_gap_ms"] = weighted["generic_ms"] - weighted["bound_ms"]
+    weighted["above_floor_ms"] = weighted["ms"] - weighted["launch_floor_ms"]
+    emit({"pe_execute_shapes": {"1024x64": largest, "by_shape": shapes,
+                                "launch_weighted": weighted}})
+    return {**largest, "launch_weighted": weighted,
+            "top_shapes": dict(list(shapes.items())[:3])}
 
 
 # -- phase 3, continued: the LM kernels against their plain versions --------
@@ -446,8 +532,16 @@ FLASH_CASES = [
 # row's largest |o|: the limit is 1e-2 (at f32, 1e-5, ~1e-6 is seen).
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_ROW_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# rglru_scan: the path's two prefill waves (4 x 3072 and 2 x 600 rows of
+# 2560 channels), the test shapes, a ragged channel tile (D = 40), S = 1, a
+# ragged last stage over several turns of the ring; D no multiple of 4 and
+# a base off by one float on the direct route. (B, S, D, offset base)
 RGLRU_PATH = (4, 3072, 2560)
-RGLRU_CASES = [RGLRU_PATH, (1, 64, 128), (3, 100, 96), (2, 17, 40)]
+RGLRU_WAVE2 = (2, 600, 2560)
+RGLRU_CASES = [RGLRU_PATH + (False,), RGLRU_WAVE2 + (False,),
+               (1, 64, 128, False), (3, 100, 96, False), (2, 17, 40, False),
+               (1, 1, 64, False), (2, 1000, 64, False), (2, 17, 33, False),
+               (2, 100, 64, True)]
 SPLIT_CASES = [(2, 1), (7, 3), (30, 2), (3072, 4)]     # (S, B), D = 16
 
 
@@ -590,22 +684,51 @@ def flash_phase(dev) -> dict:
     return timing
 
 
+def _scan_inputs(shape, seed, dev):
+    b, s, d = shape
+    return (torch.sigmoid(_normal((b, s, d), seed, dev)),
+            _normal((b, s, d), seed + 1, dev), _normal((b, d), seed + 2, dev))
+
+
+def _scan_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
 def rglru_phase(dev) -> dict:
-    errs = {}
-    for i, (b, s, d) in enumerate(RGLRU_CASES):
-        a = torch.sigmoid(_normal((b, s, d), 10 + i, dev))
-        x = _normal((b, s, d), 20 + i, dev)
-        h0 = _normal((b, d), 30 + i, dev)
-        h, hf = rg.rglru_scan(a, x, h0)
-        hr, hfr = rglru_scan_ref(a, x, h0)
-        torch.cuda.synchronize()
-        err = max(float((h - hr).abs().max()), float((hf - hfr).abs().max()))
-        errs[f"{b}x{s}x{d}"] = err
-        check(err <= 1e-5, f"rglru_scan {b}x{s}x{d}: max |err| {err} > 1e-5")
+    """rglru_scan against rglru_scan_ref (1e-5) on the route the wrapper
+    picks (its counter must move) and, where that is the ring, on the
+    direct route too; split-and-carry (1e-4); both routes timed in turns
+    at the path's two prefill shapes beside the bound and the plain
+    version."""
+    design = rg.ring_design()
+    want = rg.scan_design(*RGLRU_PATH, True)
+    check(all(design[k] == want[k] for k in ("tile", "steps", "stages",
+                                             "smem_bytes")),
+          f"rglru_scan: the built ring {design} differs from scan_design "
+          f"{want}")
+    errs, routes = {}, {}
+    for i, (b, s, d, off) in enumerate(RGLRU_CASES):
+        a, x, h0 = _scan_inputs((b, s, d), 10 + 3 * i, dev)
+        if off:
+            a, x = _offset(a), _offset(x)
+        ref = rglru_scan_ref(a, x, h0)
+        path = rg.scan_design(b, s, d, not off and d % 4 == 0)["route"]
+        name = f"{b}x{s}x{d}" + ("/offset" if off else "")
+        for p in (("ring", "direct") if path == "ring" else ("direct",)):
+            before = dict(rg.ROUTE_LAUNCHES)
+            got = (rg.rglru_scan(a, x, h0) if p == path
+                   else rg.rglru_scan_on(p, a, x, h0))
+            torch.cuda.synchronize()
+            moved = {r: n - before[r] for r, n in rg.ROUTE_LAUNCHES.items()}
+            check(moved == {r: int(r == p) for r in rg.ROUTES},
+                  f"rglru_scan {name}: launches by route {moved}, want {p}")
+            err = _scan_err(got, ref)
+            errs[f"{name}/{p}"] = err
+            check(err <= 1e-5, f"rglru_scan {name} ({p} route): max |err| "
+                  f"{err} > 1e-5")
+        routes[name] = path
     for s, b in SPLIT_CASES:
-        a = torch.sigmoid(_normal((b, s, 16), s, dev))
-        x = _normal((b, s, 16), s + 1, dev)
-        h0 = _normal((b, 16), s + 2, dev)
+        a, x, h0 = _scan_inputs((b, s, 16), s, dev)
         cut = max(1, s // 2)
         h_full, hf_full = rglru_scan_ref(a, x, h0)
         _, hf1 = rg.rglru_scan(a[:, :cut].contiguous(),
@@ -616,21 +739,31 @@ def rglru_phase(dev) -> dict:
                   float((h2 - h_full[:, cut:]).abs().max()))
         errs[f"split/{b}x{s}x16"] = err
         check(err <= 1e-4, f"rglru_scan split {b}x{s}: {err} > 1e-4")
+    shapes = {}
+    for j, shape in enumerate((RGLRU_PATH, RGLRU_WAVE2)):
+        b, s, d = shape
+        a, x, h0 = _scan_inputs(shape, 40 + 3 * j, dev)
+        nbytes = 4 * (3 * b * s * d + 2 * b * d)  # a, b read; h written; h0, hf
+        shapes["x".join(map(str, shape))] = {
+            "route": rg.scan_design(b, s, d, True)["route"], **_turns_ms({
+                "ms": lambda: rg.rglru_scan(a, x, h0),
+                "direct_ms": lambda: rg.rglru_scan_on("direct", a, x, h0)},
+                20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
     b, s, d = RGLRU_PATH
-    a = torch.sigmoid(_normal((b, s, d), 40, dev))
-    x = _normal((b, s, d), 41, dev)
-    h0 = _normal((b, d), 42, dev)
-    nbytes = 4 * (3 * b * s * d + 2 * b * d)     # a, b read; h written; h0, hf
-    timing = {"ms": _device_ms(lambda: rg.rglru_scan(a, x, h0), 20),
+    a, x, h0 = _scan_inputs(RGLRU_PATH, 40, dev)
+    timing = {**shapes["x".join(map(str, RGLRU_PATH))],
               "plain_ms": _device_ms(lambda: rglru_scan_ref(a, x, h0), 1, 2),
               "plain_model_path_ms": _device_ms(
                   lambda: linear_scan(a, x, h0), 2),
-              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-              "bound_by": "bytes", "bytes": nbytes, "library_ms": None,
-              "max_abs_err": errs[next(iter(errs))]}
-    emit({"kernel_phase": {"rglru_scan": {"cases": errs,
-                                          "path_shape": timing}}})
-    return timing
+              "bound_by": "bytes", "library_ms": None,
+              "max_abs_err": errs[f"{b}x{s}x{d}/ring"]}
+    emit({"kernel_phase": {"rglru_scan": {
+        "cases": errs, "routes": routes,
+        "ring_design": {**design, "copies": "cp.async.bulk.tensor.3d "
+                        "(TMA), one mbarrier per stage"},
+        "shapes": shapes, "path_shape": timing}}})
+    return {**timing, "shapes": shapes, "design": design}
 
 
 # -- phases 5 and 6: the LM serving path --------------------------------------
@@ -777,7 +910,7 @@ def lm_main_path(dev) -> tuple:
     """The full model through the kernels, timed as a user runs it; then
     its plain path on the card, and the kernel path fed the plain path's
     tokens (teacher forcing), clean and with each of LM_FAULTS planted.
-    Returns the kernels' (flash, rglru) launches of the timed run."""
+    Returns the kernels' launch_counts() of the timed run."""
     cfg = lm_config()
     t0 = time.perf_counter()
     model = init_model(cfg, LM_SEED, dev)
@@ -796,14 +929,15 @@ def lm_main_path(dev) -> tuple:
     counts = launch_counts()
     launches = counts[:2]
     peak = torch.cuda.max_memory_allocated()
-    waves = _waves(marks, (0, 0, 0))
+    waves = _waves(marks, (0, 0, 0, 0))
     n_attn = sum(k != "rglru" for k in cfg.pattern())
+    n_rglru = cfg.n_layers - n_attn
     for w in waves:
-        # [flash, rglru, flash on the tensor-core route]: bf16 compute
-        check(w["prefill_launches"] == [n_attn, cfg.n_layers - n_attn,
-                                        n_attn],
+        # [flash, rglru, flash on the tensor-core route, rglru on the ring
+        # route]: bf16 compute, every scan on the ring
+        check(w["prefill_launches"] == [n_attn, n_rglru, n_attn, n_rglru],
               f"prefill launches {w['prefill_launches']}")
-        check(w["decode_launches"] == [0, 0, 0],
+        check(w["decode_launches"] == [0, 0, 0, 0],
               f"decode launches {w['decode_launches']}")
     plain = Engine(cfg.replace(use_kernels=False), model,
                    EngineConfig(slots=LM_SLOTS))
@@ -831,6 +965,7 @@ def lm_main_path(dev) -> tuple:
         "flash_attention_launches": launches[0],
         "flash_attention_tensor_core_launches": counts[2],
         "rglru_scan_launches": launches[1],
+        "rglru_scan_ring_launches": counts[3],
         "plain_path_wall_s_with_logit_copies": plain_wall,
         "forced_logits_max_abs_err_vs_plain": _err_summary(errs),
         "forced_calls": len(errs), "tol": BF16_TOL,
@@ -847,12 +982,15 @@ def lm_main_path(dev) -> tuple:
     lm_profile(model, cfg, prompts[:LM_SLOTS])
     del model, calls_p
     torch.cuda.empty_cache()
-    return launches
+    return counts
 
 
 # the kernels' symbols, as the profiler names them: flash_attention's
-# tensor-core (bf16) and SIMT (f32) routes, rglru_scan
+# tensor-core (bf16) and SIMT (f32) routes, rglru_scan's ring and direct
+# routes, pe_execute's warp and generic routes
 FLASH_SYMBOLS = ("flash_mma_kernel", "flash_simt_kernel")
+RGLRU_SYMBOLS = ("rglru_ring_kernel", "rglru_direct_kernel")
+PE_SYMBOLS = ("pe_warp_kernel", "pe_generic_kernel")
 
 
 def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
@@ -904,7 +1042,8 @@ def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
                 "device_ops": len(kernels) / per,
                 "flash_attention_launches": flash_launched / per,
                 "flash_attention_ms": flash_ms / per,
-                "rglru_scan_ms": _device_ms_of(kernels, "rglru_kernel") / per,
+                "rglru_scan_ms": sum(_device_ms_of(kernels, sym)
+                                     for sym in RGLRU_SYMBOLS) / per,
                 "top_device_ms": {k: v / per
                                   for k, v in _top(kernels, 8).items()}}
     emit({"lm_profile": {"rows": len(prompts), "prompt_len": plen, **out}})
@@ -1030,7 +1169,8 @@ def profile_phase(benches, dev, key: str = "8cu/shared/fir") -> None:
         "device_busy_share": busy_ms / wall_ms,   # of the unprofiled wall
         "device_ops_per_round": len(kernels) / rounds,
         "pe_execute_device_us_per_round":
-            _device_ms_of(kernels, "pe_execute_kernel") / rounds * 1e3,
+            sum(_device_ms_of(kernels, sym) for sym in PE_SYMBOLS)
+            / rounds * 1e3,
         "top_device_ms": _top(kernels)}})
 
 
@@ -1073,28 +1213,45 @@ def main() -> int:
     golden = json.loads(GOLDEN.read_text())
     benches = programs.all_benches()
     emit({"reduced": REDUCED})
-    pe_simd.LAUNCHES = 0
+    pe_simd.reset_counts()
     t0 = time.perf_counter()
     main_path(benches, golden, dev)
     pending = fold_path(benches, golden, dev)
-    launches = pe_simd.LAUNCHES                 # the main path's runs only
+    # the main path's runs only
+    launches, by_route = pe_simd.LAUNCHES, dict(pe_simd.ROUTE_LAUNCHES)
+    by_shape = dict(pe_simd.LAUNCHES_BY_SHAPE)
+    wide = sum(n for (_, L), n in by_shape.items() if L == 64)
     emit({"main_path": {"wall_s": time.perf_counter() - t0,
                         "runs": len(ALL_RUNS), "pe_execute_launches":
-                        launches}})
+                        launches, "pe_execute_launches_by_route": by_route,
+                        "pe_execute_launches_by_shape": {
+                            f"{W}x{L}": n for (W, L), n in by_shape.items()}}})
+    check(by_route["warp"] == wide and by_route["generic"] == launches - wide,
+          f"pe_execute launches by route {by_route}: the warp route must "
+          f"carry every L = 64 launch ({wide}) and only those")
     verify_folds(pending, dev)
     profile_phase(benches, dev)
+    pe = pe_shapes_phase(dev, by_shape)
 
     lm_golden(dev)
-    flash_launches, rglru_launches = lm_main_path(dev)
+    flash_launches, rglru_launches, _, ring_launches = lm_main_path(dev)
+    check(ring_launches == rglru_launches,
+          f"rglru_scan: {ring_launches} of {rglru_launches} launches of the "
+          "LM path on the ring route")
 
     emit({"kernels": [
         {"name": "pe_execute", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pe_simd.cu",
          "replaces": "src/repro/kernels/pe_simd.py:39",
-         "launches": launches, "max_abs_err": kernel["max_abs_err"],
-         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
-         "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"],
-         "library_ms": None, "shape": [1024, 64], "exact": True},
+         "launches": launches, "launches_by_route": by_route,
+         "max_abs_err": kernel["max_abs_err"],
+         "ms": pe["ms"], "plain_ms": pe["plain_ms"],
+         "bound_ms": pe["bound_ms"], "bound_by": pe["bound_by"],
+         "library_ms": None, "shape": [1024, 64], "exact": True,
+         "path_route": "warp", "generic_route_ms": pe["generic_ms"],
+         "launch_floor_ms": pe["launch_floor_ms"],
+         "launch_weighted": pe["launch_weighted"],
+         "top_shapes": pe["top_shapes"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "routes": {"bfloat16": "tensor_core: flash_mma_kernel "
@@ -1108,11 +1265,18 @@ def main() -> int:
          "dtype": "bfloat16", "path_route": flash["route"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "routes": {"ring": "rglru_ring_kernel (TMA ring of "
+                            f"{rglru['design']['stages']} stages)",
+                    "direct": "rglru_direct_kernel (one thread per "
+                              "channel, loads from device memory)"},
          "replaces": "src/repro/kernels/rglru_scan.py:47",
-         "launches": rglru_launches, "max_abs_err": rglru["max_abs_err"],
+         "launches": rglru_launches, "ring_launches": ring_launches,
+         "max_abs_err": rglru["max_abs_err"],
          "ms": rglru["ms"], "plain_ms": rglru["plain_ms"],
          "bound_ms": rglru["bound_ms"], "bound_by": rglru["bound_by"],
-         "library_ms": None, "shape": list(RGLRU_PATH), "dtype": "float32"}]})
+         "library_ms": None, "shape": list(RGLRU_PATH), "dtype": "float32",
+         "path_route": rglru["route"], "direct_route_ms": rglru["direct_ms"],
+         "shapes": rglru["shapes"]}]})
     check(launches > 0, "the simulator's path launched no pe_execute kernel")
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(rglru_launches > 0, "the LM path launched no rglru_scan")

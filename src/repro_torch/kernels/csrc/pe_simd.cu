@@ -8,18 +8,36 @@
 //
 // Bound on an H100: memory. Each lane reads a and b and writes out (12
 // bytes) and each row reads op and imm (8 bytes), with a few integer
-// operations per lane. At the largest shape the simulator gives it (W=1024
-// wavefronts of L=64 lanes, vec_mul on one CU) that is 786 KB, about
-// 0.23 us at 3.35 TB/s: far below the latency of one launch, so the
-// stage is launch-bound, not bandwidth-bound.
+// operations per lane. At the largest single launch of the simulator's
+// main path (W=1024 wavefronts of L=64 lanes, vec_mul on one CU) that is
+// 795 KB, about 0.24 us at 3.35 TB/s: below what one launch costs, so the
+// launch, not the body, sets the floor. chip_smoke.py measures that floor
+// with pe_empty_kernel (the same arguments and grid, no body) and reports
+// it beside the kernel's time and its bound. Above the floor, what a
+// launch costs is the latency of its slowest thread: its loads, then the
+// longest case of the ALU (DIV/REM, a software division) on its lanes,
+// then its store.
 //
-// Design: one thread per (row, lane) element over a grid-stride loop, the
-// row's opcode and immediate read per element (they sit in L1 after the
-// first lane of the row). It works unchanged for L = 64 (G-GPU) and for
-// L = 1, W = 1 (the scalar baseline). The simple design comes first; its
-// speed is later work (the round around it is what costs, see PERF.md).
+// Two routes, chosen by the wrapper (kernels/pe_simd.py route) from the
+// shape alone, and counted apart:
 //
-// The int32 semantics are written out with no undefined behaviour:
+//  * warp (L % 32 == 0; the G-GPU's L = 64 always): one lane a thread,
+//    exactly W * L threads in blocks of 256 (4 wavefronts at L = 64), no
+//    grid-stride loop, 32-bit index arithmetic (the wrapper holds
+//    W * L < 2^31) and the row a compile-time shift at L = 64. A warp
+//    covers 32 lanes of one row, so the opcode, the immediate and the
+//    switch are warp-uniform: no warp runs two cases of the ALU, and each
+//    thread runs the longest case once. (Four lanes a thread with 16-byte
+//    loads was tried first and measured slower on the card: a quarter of
+//    the threads, each running its case four times, two rows per warp.)
+//  * generic (every other shape, e.g. the scalar baseline's 1 x 1): the
+//    first design, kept as it was: one thread per (row, lane) element
+//    over a grid-stride loop with 64-bit counters, the row's opcode and
+//    immediate read per element. chip_smoke.py also times it at L = 64
+//    beside the warp route.
+//
+// The int32 semantics are written out with no undefined behaviour, shared
+// by both routes (alu):
 //   ADD/SUB/MUL/SLL/SLLI/LUI wrap through uint32_t; SRA/SRAI are
 //   arithmetic on int32_t; SRL/SRLI are logical on uint32_t; shift amounts
 //   are clipped to [0, 31]; MULH is __mulhi; DIV/REM are floor ops with
@@ -87,7 +105,29 @@ __device__ __forceinline__ int32_t alu(int op, int32_t a, int32_t b,
   }
 }
 
-__global__ void pe_execute_kernel(const int32_t* __restrict__ op,
+constexpr int kWarpThreads = 256;
+constexpr int kGenericThreads = 256;
+
+// kL > 0: rows of kL lanes known at compile time; kL == 0: rows of L.
+template <int kL>
+__global__ void __launch_bounds__(kWarpThreads)
+pe_warp_kernel(const int32_t* __restrict__ op,
+               const int32_t* __restrict__ imm,
+               const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, uint32_t n, uint32_t L,
+               uint32_t ops_mask) {
+  const uint32_t i = blockIdx.x * kWarpThreads + threadIdx.x;
+  if (i >= n) return;
+  uint32_t row;
+  if constexpr (kL > 0) {
+    row = i / kL;                        // a shift at kL = 64
+  } else {
+    row = i / L;
+  }
+  out[i] = alu(op[row], a[i], b[i], imm[row], ops_mask);
+}
+
+__global__ void pe_generic_kernel(const int32_t* __restrict__ op,
                                   const int32_t* __restrict__ imm,
                                   const int32_t* __restrict__ a,
                                   const int32_t* __restrict__ b,
@@ -100,6 +140,11 @@ __global__ void pe_execute_kernel(const int32_t* __restrict__ op,
     out[i] = alu(op[row], a[i], b[i], imm[row], ops_mask);
   }
 }
+
+// The launch floor: pe_execute's arguments, no body.
+__global__ void pe_empty_kernel(const int32_t*, const int32_t*,
+                                const int32_t*, const int32_t*, int32_t*,
+                                int, int, uint32_t) {}
 
 // Streaming multiprocessors of the current device, read once per device.
 int sm_count(int* count) {
@@ -120,26 +165,85 @@ int sm_count(int* count) {
   return 0;
 }
 
-}  // namespace
+bool warp_takes(int W, int L) {
+  return W > 0 && L > 0 && L % 32 == 0 && (int64_t)W * L < (1ll << 31);
+}
 
-// Launches on `stream` of the current device; returns the CUDA error of
-// the launch (0 when it was accepted). op, imm: (W, 1); a, b, out: (W, L);
-// all int32, contiguous, on the current device.
-extern "C" int pe_execute(const void* op, const void* imm, const void* a,
-                          const void* b, void* out, int W, int L,
-                          unsigned int ops_mask, void* stream) {
-  const int64_t n = (int64_t)W * L;
-  if (n <= 0) return 0;
+int warp_blocks(int W, int L) {
+  return (W * L + kWarpThreads - 1) / kWarpThreads;
+}
+
+int generic_blocks(int64_t n, int* blocks) {
   int sms = 0;
   const int rc = sm_count(&sms);
   if (rc != 0) return rc;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (int64_t)sms * 16) blocks = (int64_t)sms * 16;  // 16 per SM
-  pe_execute_kernel<<<(unsigned int)blocks, threads, 0,
-                      (cudaStream_t)stream>>>(
+  int64_t nb = (n + kGenericThreads - 1) / kGenericThreads;
+  if (nb > (int64_t)sms * 16) nb = (int64_t)sms * 16;   // 16 per SM
+  *blocks = (int)nb;
+  return 0;
+}
+
+}  // namespace
+
+// op, imm: (W, 1); a, b, out: (W, L); all int32, contiguous, on the current
+// device. Each launches on `stream` and returns the CUDA error of the
+// launch (0 when it was accepted). The warp route refuses
+// (cudaErrorInvalidValue) what it does not take.
+extern "C" int pe_execute_warp(const void* op, const void* imm, const void* a,
+                               const void* b, void* out, int W, int L,
+                               unsigned int ops_mask, void* stream) {
+  if (W == 0) return 0;
+  if (!warp_takes(W, L)) return (int)cudaErrorInvalidValue;
+  const uint32_t n = (uint32_t)W * (uint32_t)L;
+  const int blocks = warp_blocks(W, L);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (L == 64) {
+    pe_warp_kernel<64><<<blocks, kWarpThreads, 0, s>>>(
+        (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
+        (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
+  } else {
+    pe_warp_kernel<0><<<blocks, kWarpThreads, 0, s>>>(
+        (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
+        (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pe_execute_generic(const void* op, const void* imm,
+                                  const void* a, const void* b, void* out,
+                                  int W, int L, unsigned int ops_mask,
+                                  void* stream) {
+  const int64_t n = (int64_t)W * L;
+  if (n <= 0) return 0;
+  int blocks = 0;
+  const int rc = generic_blocks(n, &blocks);
+  if (rc != 0) return rc;
+  pe_generic_kernel<<<blocks, kGenericThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
       (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
+  return (int)cudaGetLastError();
+}
+
+// pe_empty_kernel with the grid and arguments the route `warp` (1) or
+// generic (0) launches for these inputs: what a launch costs with no body.
+extern "C" int pe_launch_floor(const void* op, const void* imm, const void* a,
+                               const void* b, void* out, int W, int L,
+                               unsigned int ops_mask, int warp,
+                               void* stream) {
+  const int64_t n = (int64_t)W * L;
+  if (n <= 0) return 0;
+  int blocks = 0, threads = kWarpThreads;
+  if (warp) {
+    if (!warp_takes(W, L)) return (int)cudaErrorInvalidValue;
+    blocks = warp_blocks(W, L);
+  } else {
+    const int rc = generic_blocks(n, &blocks);
+    if (rc != 0) return rc;
+    threads = kGenericThreads;
+  }
+  pe_empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
+      (const int32_t*)b, (int32_t*)out, W, L, ops_mask);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,12 @@
 Pallas TPU kernel): h_t = a_t * h_{t-1} + b_t over (B, S, D), state in
 f32. On CUDA tensors it launches ``csrc/rglru_scan.cu`` on the current
 stream of the tensors' device, or raises; on CPU tensors it runs the plain
-version ``ref.rglru_scan_ref``. ``LAUNCHES`` counts kernel launches.
+version ``ref.rglru_scan_ref``. The kernel has two routes, chosen by shape
+and alignment (``scan_design``): "ring" (32 channels a block, S streamed
+through a ring of shared-memory stages by the Tensor Memory Accelerator)
+and "direct" (one thread per (batch, channel), loads straight from device
+memory; any D or base). ``LAUNCHES`` counts kernel launches and
+``ROUTE_LAUNCHES`` splits them by route.
 """
 from __future__ import annotations
 
@@ -17,17 +22,62 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rglru_scan_ref
 
 LAUNCHES = 0
+ROUTES = ("ring", "direct")
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+# the ring route as csrc/rglru_scan.cu builds it (kTile, kSteps, kStages)
+RING_TILE = 32            # channels per block: one warp, 128 B per step
+RING_STEPS = 16           # steps per stage
+RING_STAGES = 4           # stages in the ring
+DIRECT_THREADS = 64       # the direct route's block: 64 channels
+DIRECT_CHUNK = 8          # steps the direct route loads ahead
+_ENTRY = {"ring": "rglru_scan_ring", "direct": "rglru_scan_direct"}
+_DESIGN_KEYS = ("tile", "steps", "stages", "smem_bytes", "blocks_per_sm",
+                "registers", "spill_bytes")
 
 
 @functools.cache
 def _lib():
     lib = _build.load("rglru_scan")
-    lib.rglru_scan.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    lib.rglru_scan.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.rglru_ring_design.argtypes = [ctypes.c_void_p]
+    lib.rglru_ring_design.restype = ctypes.c_int
     lib.rglru_error_string.argtypes = [ctypes.c_int]
     lib.rglru_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def scan_design(B: int, S: int, D: int, aligned: bool) -> dict:
+    """The launch ``rglru_scan`` makes for (B, S, D) inputs whose bases
+    are 16-byte aligned (``aligned``, a and b): the route, channels per
+    block (``tile``), steps per stage, stages, shared memory per block,
+    threads per block and blocks. The ring route needs D % 4 == 0 (a
+    step's row a multiple of 16 bytes, as the tensor map does), aligned
+    bases and S > 0; everything else takes the direct route."""
+    if D % 4 == 0 and aligned and S > 0 and D > 0:
+        smem = 2 * RING_STAGES * RING_STEPS * RING_TILE * 4 + 8 * RING_STAGES
+        return {"route": "ring", "tile": RING_TILE, "steps": RING_STEPS,
+                "stages": RING_STAGES, "smem_bytes": smem,
+                "threads": RING_TILE, "blocks": B * -(-D // RING_TILE)}
+    return {"route": "direct", "tile": DIRECT_THREADS,
+            "steps": DIRECT_CHUNK, "stages": 1, "smem_bytes": 0,
+            "threads": DIRECT_THREADS,
+            "blocks": -(-(B * D) // DIRECT_THREADS)}
+
+
+def ring_design() -> dict:
+    """The ring route as built on the current device: tile, steps per
+    stage, stages, shared memory per block, blocks resident per SM,
+    registers and spilled bytes per thread (``_DESIGN_KEYS``)."""
+    out = (ctypes.c_int * len(_DESIGN_KEYS))()
+    rc = _lib().rglru_ring_design(out)
+    if rc != 0:
+        raise RuntimeError("rglru_ring_design failed: "
+                           + _lib().rglru_error_string(rc).decode())
+    return dict(zip(_DESIGN_KEYS, out))
 
 
 def _check(a, b, h0):
@@ -48,19 +98,36 @@ def _check(a, b, h0):
                          f" got {tuple(h0.shape)}")
 
 
+def _aligned(a, b) -> bool:
+    return a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+
+
 def rglru_scan(a, b, h0):
     """a, b: (B, S, D) f32; h0: (B, D) f32 -> (h (B, S, D), h_final)."""
-    global LAUNCHES
     _check(a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    return rglru_scan_on(scan_design(*a.shape, _aligned(a, b))["route"],
+                         a, b, h0)
+
+
+def rglru_scan_on(path: str, a, b, h0):
+    """``rglru_scan`` on the kernel route ``path`` ("ring" or "direct"),
+    CUDA tensors only; the ring route raises for inputs it does not
+    take."""
+    global LAUNCHES
+    _check(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     batch, seq, dim = a.shape
+    if path == "ring" and scan_design(batch, seq, dim,
+                                      _aligned(a, b))["route"] != "ring":
+        raise ValueError(f"rglru_scan: the ring route does not take "
+                         f"{tuple(a.shape)} at these bases")
     h = torch.empty_like(a)
     h_final = torch.empty_like(h0)
     with torch.cuda.device(a.device):
-        rc = _lib().rglru_scan(
+        rc = getattr(_lib(), _ENTRY[path])(
             a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
             h_final.data_ptr(), batch, seq, dim,
             torch.cuda.current_stream(a.device).cuda_stream)
@@ -68,4 +135,5 @@ def rglru_scan(a, b, h0):
         raise RuntimeError("rglru_scan launch failed: "
                            + _lib().rglru_error_string(rc).decode())
     LAUNCHES += 1
+    ROUTE_LAUNCHES[path] += 1
     return h, h_final

@@ -50,21 +50,70 @@ def test_pe_execute_edges_on_card(cuda):
                                   device=cuda)
     args = (t(op), t(imm), t(np.broadcast_to(a.reshape(-1), (W, a.size))),
             t(np.broadcast_to(b.reshape(-1), (W, b.size))))
-    before = pe_simd.LAUNCHES
-    got = pe_simd.pe_execute(*args)
-    assert pe_simd.LAUNCHES == before + 1
-    torch.testing.assert_close(got, select_alu(args[0], args[2], args[3],
-                                               args[1]), rtol=0, atol=0)
+    want = select_alu(args[0], args[2], args[3], args[1])
+    before = pe_simd.LAUNCHES, pe_simd.ROUTE_LAUNCHES["generic"]
+    got = pe_simd.pe_execute(*args)         # L = 100: the generic route
+    assert (pe_simd.LAUNCHES, pe_simd.ROUTE_LAUNCHES["generic"]) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the same rows at L = 128 (the first 28 lanes again): the warp route
+    wide = [torch.cat([x, x[:, :28]], dim=1).contiguous() if x.shape[1] > 1
+            else x for x in args]
+    before = pe_simd.ROUTE_LAUNCHES["warp"]
+    got = pe_simd.pe_execute(*wide)
+    assert pe_simd.ROUTE_LAUNCHES["warp"] == before + 1
+    torch.testing.assert_close(
+        got, select_alu(wide[0], wide[2], wide[3], wide[1]), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("W,L", [(1, 1), (64, 64), (1024, 64), (37, 5)])
+def _offset(x):
+    """``x`` copied to a base one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (W, L, base off by one int32, route): the warp route at the simulator's
+# L = 64 (also off a 16-byte boundary: 4-byte loads need no more) and at
+# L = 96; the generic route at the scalar 1 x 1 and L no multiple of 32
+@pytest.mark.parametrize("W,L,off,path", [
+    (1, 1, False, "generic"), (64, 64, False, "warp"),
+    (1024, 64, False, "warp"), (37, 5, False, "generic"),
+    (5, 3, False, "generic"), (9, 96, False, "warp"),
+    (64, 64, True, "warp"), (7, 48, True, "generic")])
 @pytest.mark.parametrize("masked", [False, True])
-def test_pe_execute_random_on_card(cuda, W, L, masked):
+def test_pe_execute_random_on_card(cuda, W, L, off, path, masked):
     op, imm, a, b = _inputs(W, L, W * L, cuda)
+    if off:
+        a, b = _offset(a), _offset(b)
     ops = frozenset({isa.ADD, isa.DIV, isa.SRL, isa.LUI}) if masked else None
+    before = dict(pe_simd.ROUTE_LAUNCHES)
     got = pe_simd.pe_execute(op, imm, a, b, ops)
+    assert {r: n - before[r] for r, n in pe_simd.ROUTE_LAUNCHES.items()} \
+        == {r: int(r == path) for r in pe_simd.ROUTES}
     torch.testing.assert_close(got, select_alu(op, a, b, imm, ops),
                                rtol=0, atol=0)
+    if path == "warp":                # the first design on the same inputs
+        torch.testing.assert_close(
+            pe_simd.pe_execute_on("generic", op, imm, a, b, ops), got,
+            rtol=0, atol=0)
+
+
+def test_pe_execute_warp_route_refuses_what_it_does_not_take(cuda):
+    op, imm, a, b = _inputs(4, 48, 0, cuda)
+    with pytest.raises(ValueError, match="warp route"):
+        pe_simd.pe_execute_on("warp", op, imm, a, b)
+
+
+def test_pe_launch_floor_runs_on_card(cuda):
+    op, imm, a, b = _inputs(1024, 64, 0, cuda)
+    out = torch.empty_like(a)
+    before = pe_simd.LAUNCHES
+    for path in pe_simd.ROUTES:
+        pe_simd.launch_floor(path, op, imm, a, b, out)
+    torch.cuda.synchronize()
+    assert pe_simd.LAUNCHES == before       # counted nowhere
 
 
 def test_simulator_card_path_equals_cpu_path(cuda):
@@ -197,21 +246,57 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q.half(), q.half(), q.half())
 
 
-@pytest.mark.parametrize("b,s,d", [(1, 64, 128), (3, 100, 96), (2, 17, 40),
-                                   (4, 3072, 2560)])
-def test_rglru_scan_on_card(cuda, b, s, d):
+# (B, S, D, base off by one float, route): the path's two prefill waves,
+# the test shapes, a ragged channel tile (D = 40), S = 1, a ragged last
+# stage over several turns of the ring; D no multiple of 4 and a base off
+# by one float on the direct route
+@pytest.mark.parametrize("b,s,d,off,path", [
+    (1, 64, 128, False, "ring"), (3, 100, 96, False, "ring"),
+    (2, 17, 40, False, "ring"), (4, 3072, 2560, False, "ring"),
+    (2, 600, 2560, False, "ring"), (1, 1, 64, False, "ring"),
+    (2, 1000, 64, False, "ring"), (2, 17, 33, False, "direct"),
+    (2, 100, 64, True, "direct")])
+def test_rglru_scan_on_card(cuda, b, s, d, off, path):
     g = np.random.default_rng(s)
     a = torch.sigmoid(torch.as_tensor(g.standard_normal((b, s, d),
                                                         np.float32),
                                       device=cuda))
     x = torch.as_tensor(g.standard_normal((b, s, d), np.float32), device=cuda)
     h0 = torch.as_tensor(g.standard_normal((b, d), np.float32), device=cuda)
-    before = rg.LAUNCHES
+    if off:
+        a, x = _offset(a), _offset(x)
+    before = rg.LAUNCHES, dict(rg.ROUTE_LAUNCHES)
     h, hf = rg.rglru_scan(a, x, h0)
-    assert rg.LAUNCHES == before + 1
+    assert rg.LAUNCHES == before[0] + 1
+    assert {r: n - before[1][r] for r, n in rg.ROUTE_LAUNCHES.items()} \
+        == {r: int(r == path) for r in rg.ROUTES}
     hr, hfr = rglru_scan_ref(a, x, h0)
     torch.testing.assert_close(h, hr, rtol=0, atol=1e-5)
     torch.testing.assert_close(hf, hfr, rtol=0, atol=1e-5)
+    if path == "ring":                # the direct route on the same inputs
+        hd, hfd = rg.rglru_scan_on("direct", a, x, h0)
+        torch.testing.assert_close(hd, hr, rtol=0, atol=1e-5)
+        torch.testing.assert_close(hfd, hfr, rtol=0, atol=1e-5)
+
+
+def test_rglru_ring_design_on_card(cuda):
+    """The built ring kernel has the design its Python mirror states, fits
+    three blocks on an SM and spills nothing."""
+    design = rg.ring_design()
+    want = rg.scan_design(4, 3072, 2560, True)
+    assert (design["tile"], design["steps"], design["stages"],
+            design["smem_bytes"]) == (want["tile"], want["steps"],
+                                      want["stages"], want["smem_bytes"])
+    assert design["blocks_per_sm"] >= 3 and design["spill_bytes"] == 0
+
+
+def test_rglru_ring_route_refuses_what_it_does_not_take(cuda):
+    a = torch.rand((1, 8, 36), device=cuda)
+    with pytest.raises(ValueError, match="ring route"):
+        rg.rglru_scan_on("ring", _offset(a), a, a[:, 0].contiguous())
+    a = torch.rand((1, 8, 30), device=cuda)
+    with pytest.raises(ValueError, match="ring route"):
+        rg.rglru_scan_on("ring", a, a, a[:, 0].contiguous())
 
 
 @pytest.mark.parametrize("s,b", [(2, 1), (7, 3), (30, 2)])
