@@ -12,9 +12,9 @@ Phases, each fatal on any mismatch:
      rglru_scan from src/repro_torch/kernels/csrc/ for sm_90a, one nvcc
      per source, all started together;
   3. kernels: pe_execute against its plain PyTorch version (select_alu)
-     bit-exact on both routes (warp and generic), on all 32 opcodes with
-     int32 edge operands and on random inputs at the main path's shapes
-     and the generic route's edges; flash_attention (bf16 on its
+     bit-exact, on all 32 opcodes with int32 edge operands and on random
+     inputs at the main path's shapes, L no multiple of 32 and a base off
+     16 bytes; flash_attention (bf16 on its
      tensor-core route, f32 on its SIMT route) against attention_ref at
      RecurrentGemma-2B's prefill shape, the SmolLM-360M shape, the shapes
      of tests/test_kernels.py and the tensor-core route's edges (max |err|
@@ -34,10 +34,11 @@ Phases, each fatal on any mismatch:
      in src/repro_torch/ggpu/golden_runs.json; then run_kernel_cohort of 8
      fir images and run_kernel_batch of [copy, vec_mul, div_int], each
      launch against the golden file and, after the path's launch counts
-     are read (every L = 64 launch on pe_execute's warp route), against
-     its single run on the card; pe_execute then timed at every (W, L) the
-     path launched it at, on both routes and as an empty launch of the
-     same grid (the launch floor), weighted by the path's launches;
+     are read (pe_execute's calls counted by (W, L) as the simulator
+     makes them; every call a launch), against its single run on the
+     card; pe_execute then timed at every (W, L) the path launched it at,
+     beside an empty launch of the same grid (the launch floor), weighted
+     by the path's launches;
   5. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
      numpy-seeded weights, through Engine.generate and the kernels: six
      prompts (3072 to 37 tokens) in two waves of 4 slots, 16 greedy
@@ -405,9 +406,8 @@ def _offset(x):
 
 
 def kernel_phase(dev) -> dict:
-    """pe_execute against select_alu bit for bit on both routes: every
-    case on the route the wrapper picks (its counter must move), and every
-    case the warp route takes on the generic route too."""
+    """pe_execute against select_alu bit for bit on every case; each call
+    must launch the kernel once."""
     cases = [("edges", _edge_inputs(dev), None)]
     mask = frozenset({isa.ADD, isa.MUL, isa.DIV, isa.SRL, isa.LUI})
     for W, L in ((1, 1), (64, 64), (1024, 64), (8, 64), (9, 96), (37, 5),
@@ -417,28 +417,19 @@ def kernel_phase(dev) -> dict:
                           _random_inputs(W, L, W + L, dev), ops))
     op, imm, a, b = _random_inputs(64, 64, 3, dev)
     cases.append(("64x64/offset", (op, imm, _offset(a), _offset(b)), None))
-    max_err, by_route = 0, dict.fromkeys(pe_simd.ROUTES, 0)
+    max_err = 0
     for name, (op, imm, a, b), ops in cases:
         want = select_alu(op, a, b, imm, ops)
-        path = pe_simd.route(*a.shape)
-        paths = ("warp", "generic") if path == "warp" else ("generic",)
-        for i, p in enumerate(paths):
-            before = dict(pe_simd.ROUTE_LAUNCHES)
-            got = (pe_simd.pe_execute(op, imm, a, b, ops) if i == 0
-                   else pe_simd.pe_execute_on(p, op, imm, a, b, ops))
-            torch.cuda.synchronize()
-            moved = {r: n - before[r]
-                     for r, n in pe_simd.ROUTE_LAUNCHES.items()}
-            check(moved == {r: int(r == p) for r in pe_simd.ROUTES},
-                  f"pe_execute {name}: launches by route {moved}, want {p}")
-            by_route[p] += 1
-            err = int((got.long() - want.long()).abs().max())
-            max_err = max(max_err, err)
-            check(torch.equal(got, want),
-                  f"pe_execute ({p} route) != select_alu on {name}")
+        before = pe_simd.LAUNCHES
+        got = pe_simd.pe_execute(op, imm, a, b, ops)
+        torch.cuda.synchronize()
+        check(pe_simd.LAUNCHES == before + 1,
+              f"pe_execute {name}: {pe_simd.LAUNCHES - before} launches")
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"pe_execute != select_alu on {name}")
     emit({"kernel_phase": {"pe_execute": {
-        "exact": True, "cases": len(cases), "checks_by_route": by_route,
-        "max_abs_err": max_err}}})
+        "exact": True, "cases": len(cases), "max_abs_err": max_err}}})
     return {"max_abs_err": max_err}
 
 
@@ -453,22 +444,19 @@ def pe_bound(W: int, L: int) -> dict:
 
 def pe_shapes_phase(dev, by_shape: dict) -> dict:
     """pe_execute timed at every (W, L) the main path launched it at, in
-    turns: the route the wrapper picks, the generic route (the first
-    design), the launch floor (an empty kernel with the same arguments and
-    grid); the bound; launch-weighted sums over the path. At 1024 x 64, the largest
-    shape, also the plain version and eager launches from the host."""
+    turns with the launch floor (an empty kernel with the same arguments
+    and grid); the bound; launch-weighted sums over the path. At 1024 x
+    64, the largest shape, also the plain version and eager launches from
+    the host."""
     shapes = {}
     for (W, L), n in sorted(by_shape.items(), key=lambda kv: -kv[1]):
         op, imm, a, b = _random_inputs(W, L, 7, dev)
-        path = pe_simd.route(W, L)
         out = torch.empty_like(a)
         shapes[f"{W}x{L}"] = {
-            "launches": n, "route": path, **_turns_ms({
+            "launches": n, **_turns_ms({
                 "ms": lambda: pe_simd.pe_execute(op, imm, a, b),
-                "generic_ms": lambda: pe_simd.pe_execute_on(
-                    "generic", op, imm, a, b),
                 "launch_floor_ms": lambda: pe_simd.launch_floor(
-                    path, op, imm, a, b, out)}, 100),
+                    op, imm, a, b, out)}, 100),
             **pe_bound(W, L)}
     W, L = 1024, 64
     op, imm, a, b = _random_inputs(W, L, 7, dev)
@@ -477,21 +465,17 @@ def pe_shapes_phase(dev, by_shape: dict) -> dict:
     plain = lambda: select_alu(op, a, b, imm)            # noqa: E731
     largest = {
         **_turns_ms({"ms": kernel,
-                     "generic_ms": lambda: pe_simd.pe_execute_on(
-                         "generic", op, imm, a, b),
                      "launch_floor_ms": lambda: pe_simd.launch_floor(
-                         "warp", op, imm, a, b, out)}, 100),
+                         op, imm, a, b, out)}, 100),
         "plain_ms": _device_ms(plain, 10), "eager_ms": _eager_ms(kernel, 200),
         "plain_eager_ms": _eager_ms(plain, 20), **pe_bound(W, L)}
 
     def total(key):
         return sum(v["launches"] * v[key] for v in shapes.values())
     weighted = {"launches": sum(v["launches"] for v in shapes.values()),
-                "ms": total("ms"), "generic_ms": total("generic_ms"),
-                "launch_floor_ms": total("launch_floor_ms"),
+                "ms": total("ms"), "launch_floor_ms": total("launch_floor_ms"),
                 "bound_ms": total("bound_ms")}
     weighted["gap_ms"] = weighted["ms"] - weighted["bound_ms"]
-    weighted["generic_gap_ms"] = weighted["generic_ms"] - weighted["bound_ms"]
     weighted["above_floor_ms"] = weighted["ms"] - weighted["launch_floor_ms"]
     emit({"pe_execute_shapes": {"1024x64": largest, "by_shape": shapes,
                                 "launch_weighted": weighted}})
@@ -701,23 +685,21 @@ def rglru_phase(dev) -> dict:
     at the path's two prefill shapes beside the bound and the plain
     version."""
     design = rg.ring_design()
-    want = rg.scan_design(*RGLRU_PATH, True)
-    check(all(design[k] == want[k] for k in ("tile", "steps", "stages",
-                                             "smem_bytes")),
-          f"rglru_scan: the built ring {design} differs from scan_design "
-          f"{want}")
+    check(design["spill_bytes"] == 0 and design["blocks_per_sm"] >= 3,
+          f"rglru_scan: the built ring {design} spills or fits fewer than "
+          "3 blocks an SM")
     errs, routes = {}, {}
     for i, (b, s, d, off) in enumerate(RGLRU_CASES):
         a, x, h0 = _scan_inputs((b, s, d), 10 + 3 * i, dev)
         if off:
             a, x = _offset(a), _offset(x)
         ref = rglru_scan_ref(a, x, h0)
-        path = rg.scan_design(b, s, d, not off and d % 4 == 0)["route"]
+        path = rg.scan_route(b, s, d, not off)
         name = f"{b}x{s}x{d}" + ("/offset" if off else "")
         for p in (("ring", "direct") if path == "ring" else ("direct",)):
             before = dict(rg.ROUTE_LAUNCHES)
             got = (rg.rglru_scan(a, x, h0) if p == path
-                   else rg.rglru_scan_on(p, a, x, h0))
+                   else rg._launch(p, a, x, h0))
             torch.cuda.synchronize()
             moved = {r: n - before[r] for r, n in rg.ROUTE_LAUNCHES.items()}
             check(moved == {r: int(r == p) for r in rg.ROUTES},
@@ -745,9 +727,9 @@ def rglru_phase(dev) -> dict:
         a, x, h0 = _scan_inputs(shape, 40 + 3 * j, dev)
         nbytes = 4 * (3 * b * s * d + 2 * b * d)  # a, b read; h written; h0, hf
         shapes["x".join(map(str, shape))] = {
-            "route": rg.scan_design(b, s, d, True)["route"], **_turns_ms({
+            "route": rg.scan_route(b, s, d, True), **_turns_ms({
                 "ms": lambda: rg.rglru_scan(a, x, h0),
-                "direct_ms": lambda: rg.rglru_scan_on("direct", a, x, h0)},
+                "direct_ms": lambda: rg._launch("direct", a, x, h0)},
                 20),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
     b, s, d = RGLRU_PATH
@@ -987,10 +969,10 @@ def lm_main_path(dev) -> tuple:
 
 # the kernels' symbols, as the profiler names them: flash_attention's
 # tensor-core (bf16) and SIMT (f32) routes, rglru_scan's ring and direct
-# routes, pe_execute's warp and generic routes
+# routes, pe_execute's kernel
 FLASH_SYMBOLS = ("flash_mma_kernel", "flash_simt_kernel")
 RGLRU_SYMBOLS = ("rglru_ring_kernel", "rglru_direct_kernel")
-PE_SYMBOLS = ("pe_warp_kernel", "pe_generic_kernel")
+PE_SYMBOLS = ("pe_execute_kernel",)
 
 
 def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
@@ -1174,6 +1156,16 @@ def profile_phase(benches, dev, key: str = "8cu/shared/fir") -> None:
         "top_device_ms": _top(kernels)}})
 
 
+def _counted_by_shape(fn, by_shape: dict):
+    """``fn`` (pe_execute), counting its calls in ``by_shape`` by the
+    (W, L) of their operands."""
+    def counted(op, imm, a, b, ops_present=None):
+        key = tuple(a.shape)
+        by_shape[key] = by_shape.get(key, 0) + 1
+        return fn(op, imm, a, b, ops_present)
+    return counted
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
             or not GOLDEN_LM.is_file():
@@ -1213,22 +1205,25 @@ def main() -> int:
     golden = json.loads(GOLDEN.read_text())
     benches = programs.all_benches()
     emit({"reduced": REDUCED})
-    pe_simd.reset_counts()
+    by_shape = {}
+    kernel_fn = pe_simd.pe_execute
+    pe_simd.pe_execute = _counted_by_shape(kernel_fn, by_shape)
+    pe_simd.LAUNCHES = 0
     t0 = time.perf_counter()
-    main_path(benches, golden, dev)
-    pending = fold_path(benches, golden, dev)
+    try:
+        main_path(benches, golden, dev)
+        pending = fold_path(benches, golden, dev)
+    finally:
+        pe_simd.pe_execute = kernel_fn
     # the main path's runs only
-    launches, by_route = pe_simd.LAUNCHES, dict(pe_simd.ROUTE_LAUNCHES)
-    by_shape = dict(pe_simd.LAUNCHES_BY_SHAPE)
-    wide = sum(n for (_, L), n in by_shape.items() if L == 64)
+    launches = pe_simd.LAUNCHES
     emit({"main_path": {"wall_s": time.perf_counter() - t0,
                         "runs": len(ALL_RUNS), "pe_execute_launches":
-                        launches, "pe_execute_launches_by_route": by_route,
-                        "pe_execute_launches_by_shape": {
+                        launches, "pe_execute_launches_by_shape": {
                             f"{W}x{L}": n for (W, L), n in by_shape.items()}}})
-    check(by_route["warp"] == wide and by_route["generic"] == launches - wide,
-          f"pe_execute launches by route {by_route}: the warp route must "
-          f"carry every L = 64 launch ({wide}) and only those")
+    check(sum(by_shape.values()) == launches,
+          f"pe_execute: {sum(by_shape.values())} calls on the main path but "
+          f"{launches} kernel launches")
     verify_folds(pending, dev)
     profile_phase(benches, dev)
     pe = pe_shapes_phase(dev, by_shape)
@@ -1243,12 +1238,10 @@ def main() -> int:
         {"name": "pe_execute", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pe_simd.cu",
          "replaces": "src/repro/kernels/pe_simd.py:39",
-         "launches": launches, "launches_by_route": by_route,
-         "max_abs_err": kernel["max_abs_err"],
+         "launches": launches, "max_abs_err": kernel["max_abs_err"],
          "ms": pe["ms"], "plain_ms": pe["plain_ms"],
          "bound_ms": pe["bound_ms"], "bound_by": pe["bound_by"],
          "library_ms": None, "shape": [1024, 64], "exact": True,
-         "path_route": "warp", "generic_route_ms": pe["generic_ms"],
          "launch_floor_ms": pe["launch_floor_ms"],
          "launch_weighted": pe["launch_weighted"],
          "top_shapes": pe["top_shapes"]},

@@ -18,26 +18,21 @@
 // longest case of the ALU (DIV/REM, a software division) on its lanes,
 // then its store.
 //
-// Two routes, chosen by the wrapper (kernels/pe_simd.py route) from the
-// shape alone, and counted apart:
+// One kernel for every shape: one lane a thread, exactly W * L threads in
+// blocks of 256 (4 wavefronts at L = 64), no grid-stride loop, 32-bit
+// index arithmetic (the wrapper holds W * L < 2^31) and 4-byte accesses,
+// so no base needs more than int32 alignment. The row is a compile-time
+// shift at the G-GPU's L = 64 and a division by the runtime L otherwise
+// (the scalar baseline's 1 x 1, any other L). Where 32 divides L a warp
+// covers 32 lanes of one row, so the opcode, the immediate and the switch
+// are warp-uniform: no warp runs two cases of the ALU, and each thread
+// runs the longest case once. (Four lanes a thread with 16-byte loads was
+// tried first and measured slower on the card: a quarter of the threads,
+// each running its case four times, two rows per warp. The first design,
+// one thread per element over a grid-stride loop with 64-bit counters,
+// was slower too at every L = 64 shape; PERF.md keeps both times.)
 //
-//  * warp (L % 32 == 0; the G-GPU's L = 64 always): one lane a thread,
-//    exactly W * L threads in blocks of 256 (4 wavefronts at L = 64), no
-//    grid-stride loop, 32-bit index arithmetic (the wrapper holds
-//    W * L < 2^31) and the row a compile-time shift at L = 64. A warp
-//    covers 32 lanes of one row, so the opcode, the immediate and the
-//    switch are warp-uniform: no warp runs two cases of the ALU, and each
-//    thread runs the longest case once. (Four lanes a thread with 16-byte
-//    loads was tried first and measured slower on the card: a quarter of
-//    the threads, each running its case four times, two rows per warp.)
-//  * generic (every other shape, e.g. the scalar baseline's 1 x 1): the
-//    first design, kept as it was: one thread per (row, lane) element
-//    over a grid-stride loop with 64-bit counters, the row's opcode and
-//    immediate read per element. chip_smoke.py also times it at L = 64
-//    beside the warp route.
-//
-// The int32 semantics are written out with no undefined behaviour, shared
-// by both routes (alu):
+// The int32 semantics are written out with no undefined behaviour (alu):
 //   ADD/SUB/MUL/SLL/SLLI/LUI wrap through uint32_t; SRA/SRAI are
 //   arithmetic on int32_t; SRL/SRLI are logical on uint32_t; shift amounts
 //   are clipped to [0, 31]; MULH is __mulhi; DIV/REM are floor ops with
@@ -105,18 +100,17 @@ __device__ __forceinline__ int32_t alu(int op, int32_t a, int32_t b,
   }
 }
 
-constexpr int kWarpThreads = 256;
-constexpr int kGenericThreads = 256;
+constexpr int kThreads = 256;
 
 // kL > 0: rows of kL lanes known at compile time; kL == 0: rows of L.
 template <int kL>
-__global__ void __launch_bounds__(kWarpThreads)
-pe_warp_kernel(const int32_t* __restrict__ op,
-               const int32_t* __restrict__ imm,
-               const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-               int32_t* __restrict__ out, uint32_t n, uint32_t L,
-               uint32_t ops_mask) {
-  const uint32_t i = blockIdx.x * kWarpThreads + threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+pe_execute_kernel(const int32_t* __restrict__ op,
+                  const int32_t* __restrict__ imm,
+                  const int32_t* __restrict__ a,
+                  const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                  uint32_t n, uint32_t L, uint32_t ops_mask) {
+  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   uint32_t row;
   if constexpr (kL > 0) {
@@ -127,123 +121,57 @@ pe_warp_kernel(const int32_t* __restrict__ op,
   out[i] = alu(op[row], a[i], b[i], imm[row], ops_mask);
 }
 
-__global__ void pe_generic_kernel(const int32_t* __restrict__ op,
-                                  const int32_t* __restrict__ imm,
-                                  const int32_t* __restrict__ a,
-                                  const int32_t* __restrict__ b,
-                                  int32_t* __restrict__ out,
-                                  int64_t n, int L, uint32_t ops_mask) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t row = i / L;
-    out[i] = alu(op[row], a[i], b[i], imm[row], ops_mask);
-  }
-}
-
 // The launch floor: pe_execute's arguments, no body.
 __global__ void pe_empty_kernel(const int32_t*, const int32_t*,
                                 const int32_t*, const int32_t*, int32_t*,
-                                int, int, uint32_t) {}
+                                uint32_t, uint32_t, uint32_t) {}
 
-// Streaming multiprocessors of the current device, read once per device.
-int sm_count(int* count) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) {
-    return (int)cudaDeviceGetAttribute(count,
-                                       cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (cached[dev] == 0) {
-    err = cudaDeviceGetAttribute(&cached[dev],
-                                 cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  *count = cached[dev];
-  return 0;
-}
-
-bool warp_takes(int W, int L) {
-  return W > 0 && L > 0 && L % 32 == 0 && (int64_t)W * L < (1ll << 31);
-}
-
-int warp_blocks(int W, int L) {
-  return (W * L + kWarpThreads - 1) / kWarpThreads;
-}
-
-int generic_blocks(int64_t n, int* blocks) {
-  int sms = 0;
-  const int rc = sm_count(&sms);
-  if (rc != 0) return rc;
-  int64_t nb = (n + kGenericThreads - 1) / kGenericThreads;
-  if (nb > (int64_t)sms * 16) nb = (int64_t)sms * 16;   // 16 per SM
-  *blocks = (int)nb;
-  return 0;
+// W * L elements as the kernel's 32-bit count, or false if there are none
+// or too many.
+bool elements(int W, int L, uint32_t* n) {
+  const int64_t total = (int64_t)W * L;
+  if (W < 0 || L < 0 || total >= (1ll << 31)) return false;
+  *n = (uint32_t)total;
+  return true;
 }
 
 }  // namespace
 
 // op, imm: (W, 1); a, b, out: (W, L); all int32, contiguous, on the current
-// device. Each launches on `stream` and returns the CUDA error of the
-// launch (0 when it was accepted). The warp route refuses
-// (cudaErrorInvalidValue) what it does not take.
-extern "C" int pe_execute_warp(const void* op, const void* imm, const void* a,
-                               const void* b, void* out, int W, int L,
-                               unsigned int ops_mask, void* stream) {
-  if (W == 0) return 0;
-  if (!warp_takes(W, L)) return (int)cudaErrorInvalidValue;
-  const uint32_t n = (uint32_t)W * (uint32_t)L;
-  const int blocks = warp_blocks(W, L);
+// device. Launches on `stream` and returns the CUDA error of the launch (0
+// when it was accepted); refuses (cudaErrorInvalidValue) W * L >= 2^31.
+extern "C" int pe_execute(const void* op, const void* imm, const void* a,
+                          const void* b, void* out, int W, int L,
+                          unsigned int ops_mask, void* stream) {
+  uint32_t n = 0;
+  if (!elements(W, L, &n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const unsigned blocks = (n + kThreads - 1) / kThreads;
   const cudaStream_t s = (cudaStream_t)stream;
   if (L == 64) {
-    pe_warp_kernel<64><<<blocks, kWarpThreads, 0, s>>>(
+    pe_execute_kernel<64><<<blocks, kThreads, 0, s>>>(
         (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
         (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
   } else {
-    pe_warp_kernel<0><<<blocks, kWarpThreads, 0, s>>>(
+    pe_execute_kernel<0><<<blocks, kThreads, 0, s>>>(
         (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
         (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int pe_execute_generic(const void* op, const void* imm,
-                                  const void* a, const void* b, void* out,
-                                  int W, int L, unsigned int ops_mask,
-                                  void* stream) {
-  const int64_t n = (int64_t)W * L;
-  if (n <= 0) return 0;
-  int blocks = 0;
-  const int rc = generic_blocks(n, &blocks);
-  if (rc != 0) return rc;
-  pe_generic_kernel<<<blocks, kGenericThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
-      (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
-  return (int)cudaGetLastError();
-}
-
-// pe_empty_kernel with the grid and arguments the route `warp` (1) or
-// generic (0) launches for these inputs: what a launch costs with no body.
+// pe_empty_kernel with the grid and arguments pe_execute launches for these
+// inputs: what a launch costs with no body.
 extern "C" int pe_launch_floor(const void* op, const void* imm, const void* a,
                                const void* b, void* out, int W, int L,
-                               unsigned int ops_mask, int warp,
-                               void* stream) {
-  const int64_t n = (int64_t)W * L;
-  if (n <= 0) return 0;
-  int blocks = 0, threads = kWarpThreads;
-  if (warp) {
-    if (!warp_takes(W, L)) return (int)cudaErrorInvalidValue;
-    blocks = warp_blocks(W, L);
-  } else {
-    const int rc = generic_blocks(n, &blocks);
-    if (rc != 0) return rc;
-    threads = kGenericThreads;
-  }
-  pe_empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                               unsigned int ops_mask, void* stream) {
+  uint32_t n = 0;
+  if (!elements(W, L, &n)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  pe_empty_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    (cudaStream_t)stream>>>(
       (const int32_t*)op, (const int32_t*)imm, (const int32_t*)a,
-      (const int32_t*)b, (int32_t*)out, W, L, ops_mask);
+      (const int32_t*)b, (int32_t*)out, n, L, ops_mask);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,7 @@
 // only be kept busy by having many loads in flight: at ~0.7 us of memory
 // latency, 3.35 TB/s needs ~2.3 MB in flight, ~18 KB per SM.
 //
-// Two routes, chosen by the wrapper (kernels/rglru_scan.py scan_design)
+// Two routes, chosen by the wrapper (kernels/rglru_scan.py scan_route)
 // from shape and alignment alone, and counted apart:
 //
 //  * ring (D % 4 == 0, a and b 16-byte aligned, S > 0): one block of one
@@ -26,10 +26,10 @@
 //    at the start and refills a stage as soon as the warp has walked it,
 //    so kStages - 1 stages (12 KB of a and b) are in flight per block,
 //    2-3 blocks per SM at the path's shape: 24-36 KB per SM against the
-//    ~18 KB the latency asks for. (Stages of 16 to 64 steps and rings of
-//    3 to 8 stages were timed side by side on the card; 16 steps and 4
-//    stages, 16 KB of shared memory a block, were fastest at both of the
-//    path's prefill shapes.) The 32 lanes walk an arrived stage step by
+//    ~18 KB the latency asks for. (A first ring of 4 stages of 64 steps,
+//    64 KB of shared memory a block, ran 1.3x slower on the card at the
+//    path's prefill shape than these 16-step stages, 16 KB a block; the
+//    times are in PERF.md.) The 32 lanes walk an arrived stage step by
 //    step with h = fmaf(a, h, b), the order of the first design and of
 //    rglru_scan_ref, and store h straight to device memory, one coalesced
 //    128-byte row per step. A ragged channel tile (D = 40) and a ragged

@@ -2,16 +2,10 @@
 
 ``pe_execute`` is the port of ``repro.kernels.pe_simd.pe_execute`` (the
 Pallas TPU kernel): one ALU operation per wavefront row. On a CUDA tensor
-it launches ``csrc/pe_simd.cu`` on the current stream of the tensors'
-device, or raises; on a CPU tensor it runs the plain version
-``engine.alu.select_alu``. The kernel has two routes (``route``), chosen
-by shape: "warp" (L % 32 == 0, every L = 64 launch of the simulator: one
-lane a thread, a warp on 32 lanes of one row, so the opcode is
-warp-uniform) and "generic" (one thread per element over a grid-stride
-loop; any shape, e.g. the scalar 1 x 1). ``LAUNCHES`` counts kernel
-launches, ``ROUTE_LAUNCHES`` splits them by route and
-``LAUNCHES_BY_SHAPE`` by (W, L), so a run can show that it went through
-the kernel, which route it took and at which shapes.
+it launches ``csrc/pe_simd.cu`` (one lane a thread, the row a shift at
+L = 64) on the current stream of the tensors' device, or raises; on a CPU
+tensor it runs the plain version ``engine.alu.select_alu``. ``LAUNCHES``
+counts kernel launches, so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -24,14 +18,7 @@ from repro_torch.ggpu.engine.alu import select_alu
 from repro_torch.kernels import _build
 
 LAUNCHES = 0
-ROUTES = ("warp", "generic")
-ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
-LAUNCHES_BY_SHAPE: dict = {}
 ALL_OPS = 0xFFFFFFFF
-WARP_THREADS = 256            # threads per block, one lane each
-GENERIC_THREADS = 256         # threads per block, one element each
-GENERIC_BLOCKS_PER_SM = 16    # the generic route's grid cap
-_ENTRY = {"warp": "pe_execute_warp", "generic": "pe_execute_generic"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,40 +37,13 @@ def ops_mask(ops_present) -> int:
 @functools.cache
 def _lib():
     lib = _build.load("pe_simd")
-    args = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_uint]
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = args + [ctypes.c_void_p]
+    for fn in (lib.pe_execute, lib.pe_launch_floor):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.pe_launch_floor.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
-    lib.pe_launch_floor.restype = ctypes.c_int
     lib.pe_error_string.argtypes = [ctypes.c_int]
     lib.pe_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def route(W: int, L: int) -> str:
-    """The kernel route for (W, L) operands, as ``csrc/pe_simd.cu``
-    takes them: "warp" when L % 32 == 0 (a warp never spans two rows),
-    "generic" otherwise."""
-    return "warp" if W > 0 and L > 0 and L % 32 == 0 else "generic"
-
-
-def design(W: int, L: int, sms: int = 132) -> dict:
-    """The grid a launch at (W, L) gets on a card of ``sms`` SMs: its
-    route, threads per block and blocks. Both routes run one lane a
-    thread: the warp route exactly W * L threads, the generic route its
-    grid capped at 16 blocks per SM with a grid-stride loop over the
-    rest."""
-    path = route(W, L)
-    n = W * L
-    if path == "warp":
-        threads, blocks = WARP_THREADS, -(-n // WARP_THREADS)
-    else:
-        threads = GENERIC_THREADS
-        blocks = min(-(-n // threads), sms * GENERIC_BLOCKS_PER_SM)
-    return {"route": path, "threads": threads, "blocks": blocks}
 
 
 def _check(op, imm, a, b):
@@ -109,28 +69,17 @@ def _check(op, imm, a, b):
 def pe_execute(op, imm, a, b, ops_present=None):
     """op, imm: (W, 1) int32; a, b: (W, L) int32 -> (W, L) int32 results.
     ``ops_present`` prunes opcodes as in ``select_alu``."""
+    global LAUNCHES
     _check(op, imm, a, b)
     if a.device.type == "cpu":
         return select_alu(op, a, b, imm, ops_present)
-    return pe_execute_on(route(*a.shape), op, imm, a, b, ops_present)
-
-
-def pe_execute_on(path: str, op, imm, a, b, ops_present=None):
-    """``pe_execute`` on the kernel route ``path`` ("warp" or "generic"),
-    CUDA tensors only; the warp route raises for shapes it does not
-    take."""
-    global LAUNCHES
-    _check(op, imm, a, b)
     if a.device.type != "cuda":
         raise ValueError(f"pe_execute: no kernel for device {a.device}")
-    W, L = a.shape
-    if path == "warp" and route(W, L) != "warp":
-        raise ValueError(f"pe_execute: the warp route does not take "
-                         f"(W, L) = ({W}, {L})")
     out = torch.empty_like(a)
+    W, L = a.shape
     mask = ops_mask(None if ops_present is None else frozenset(ops_present))
     with torch.cuda.device(a.device):      # launch on the tensors' card
-        rc = getattr(_lib(), _ENTRY[path])(
+        rc = _lib().pe_execute(
             op.data_ptr(), imm.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), W, L, mask,
             torch.cuda.current_stream(a.device).cuda_stream)
@@ -138,29 +87,18 @@ def pe_execute_on(path: str, op, imm, a, b, ops_present=None):
         raise RuntimeError("pe_execute launch failed: "
                            + _lib().pe_error_string(rc).decode())
     LAUNCHES += 1
-    ROUTE_LAUNCHES[path] += 1
-    LAUNCHES_BY_SHAPE[(W, L)] = LAUNCHES_BY_SHAPE.get((W, L), 0) + 1
     return out
 
 
-def reset_counts() -> None:
-    """Set every launch count to 0."""
-    global LAUNCHES
-    LAUNCHES = 0
-    for path in ROUTE_LAUNCHES:
-        ROUTE_LAUNCHES[path] = 0
-    LAUNCHES_BY_SHAPE.clear()
-
-
-def launch_floor(path: str, op, imm, a, b, out):
-    """Launch an empty kernel with the arguments and grid that route
-    ``path`` gets for these inputs: what a launch costs with no body.
-    Counted nowhere; for timing only."""
+def launch_floor(op, imm, a, b, out):
+    """Launch an empty kernel with the arguments and grid ``pe_execute``
+    gets for these inputs: what a launch costs with no body. Counted
+    nowhere; for timing only."""
     W, L = a.shape
     with torch.cuda.device(a.device):
         rc = _lib().pe_launch_floor(
             op.data_ptr(), imm.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), W, L, ALL_OPS, int(path == "warp"),
+            out.data_ptr(), W, L, ALL_OPS,
             torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("pe_launch_floor failed: "

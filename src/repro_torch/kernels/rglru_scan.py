@@ -5,7 +5,7 @@ Pallas TPU kernel): h_t = a_t * h_{t-1} + b_t over (B, S, D), state in
 f32. On CUDA tensors it launches ``csrc/rglru_scan.cu`` on the current
 stream of the tensors' device, or raises; on CPU tensors it runs the plain
 version ``ref.rglru_scan_ref``. The kernel has two routes, chosen by shape
-and alignment (``scan_design``): "ring" (32 channels a block, S streamed
+and alignment (``scan_route``): "ring" (32 channels a block, S streamed
 through a ring of shared-memory stages by the Tensor Memory Accelerator)
 and "direct" (one thread per (batch, channel), loads straight from device
 memory; any D or base). ``LAUNCHES`` counts kernel launches and
@@ -24,12 +24,6 @@ from repro_torch.kernels.ref import rglru_scan_ref
 LAUNCHES = 0
 ROUTES = ("ring", "direct")
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
-# the ring route as csrc/rglru_scan.cu builds it (kTile, kSteps, kStages)
-RING_TILE = 32            # channels per block: one warp, 128 B per step
-RING_STEPS = 16           # steps per stage
-RING_STAGES = 4           # stages in the ring
-DIRECT_THREADS = 64       # the direct route's block: 64 channels
-DIRECT_CHUNK = 8          # steps the direct route loads ahead
 _ENTRY = {"ring": "rglru_scan_ring", "direct": "rglru_scan_direct"}
 _DESIGN_KEYS = ("tile", "steps", "stages", "smem_bytes", "blocks_per_sm",
                 "registers", "spill_bytes")
@@ -50,22 +44,13 @@ def _lib():
     return lib
 
 
-def scan_design(B: int, S: int, D: int, aligned: bool) -> dict:
-    """The launch ``rglru_scan`` makes for (B, S, D) inputs whose bases
-    are 16-byte aligned (``aligned``, a and b): the route, channels per
-    block (``tile``), steps per stage, stages, shared memory per block,
-    threads per block and blocks. The ring route needs D % 4 == 0 (a
-    step's row a multiple of 16 bytes, as the tensor map does), aligned
-    bases and S > 0; everything else takes the direct route."""
-    if D % 4 == 0 and aligned and S > 0 and D > 0:
-        smem = 2 * RING_STAGES * RING_STEPS * RING_TILE * 4 + 8 * RING_STAGES
-        return {"route": "ring", "tile": RING_TILE, "steps": RING_STEPS,
-                "stages": RING_STAGES, "smem_bytes": smem,
-                "threads": RING_TILE, "blocks": B * -(-D // RING_TILE)}
-    return {"route": "direct", "tile": DIRECT_THREADS,
-            "steps": DIRECT_CHUNK, "stages": 1, "smem_bytes": 0,
-            "threads": DIRECT_THREADS,
-            "blocks": -(-(B * D) // DIRECT_THREADS)}
+def scan_route(B: int, S: int, D: int, aligned: bool) -> str:
+    """The kernel route for (B, S, D) inputs whose bases are 16-byte
+    aligned (``aligned``, a and b): "ring" when D % 4 == 0 (a step's row a
+    multiple of 16 bytes, as the tensor map needs), the bases are aligned
+    and S > 0; "direct" otherwise."""
+    return "ring" if D % 4 == 0 and aligned and S > 0 and D > 0 \
+        else "direct"
 
 
 def ring_design() -> dict:
@@ -107,23 +92,17 @@ def rglru_scan(a, b, h0):
     _check(a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    return rglru_scan_on(scan_design(*a.shape, _aligned(a, b))["route"],
-                         a, b, h0)
-
-
-def rglru_scan_on(path: str, a, b, h0):
-    """``rglru_scan`` on the kernel route ``path`` ("ring" or "direct"),
-    CUDA tensors only; the ring route raises for inputs it does not
-    take."""
-    global LAUNCHES
-    _check(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    return _launch(scan_route(*a.shape, _aligned(a, b)), a, b, h0)
+
+
+def _launch(path: str, a, b, h0):
+    """Launch route ``path`` ("ring" or "direct") on CUDA tensors that
+    ``_check`` passed and, for the ring, that ``scan_route`` sends
+    there."""
+    global LAUNCHES
     batch, seq, dim = a.shape
-    if path == "ring" and scan_design(batch, seq, dim,
-                                      _aligned(a, b))["route"] != "ring":
-        raise ValueError(f"rglru_scan: the ring route does not take "
-                         f"{tuple(a.shape)} at these bases")
     h = torch.empty_like(a)
     h_final = torch.empty_like(h0)
     with torch.cuda.device(a.device):

@@ -51,17 +51,15 @@ def test_pe_execute_edges_on_card(cuda):
     args = (t(op), t(imm), t(np.broadcast_to(a.reshape(-1), (W, a.size))),
             t(np.broadcast_to(b.reshape(-1), (W, b.size))))
     want = select_alu(args[0], args[2], args[3], args[1])
-    before = pe_simd.LAUNCHES, pe_simd.ROUTE_LAUNCHES["generic"]
-    got = pe_simd.pe_execute(*args)         # L = 100: the generic route
-    assert (pe_simd.LAUNCHES, pe_simd.ROUTE_LAUNCHES["generic"]) == (
-        before[0] + 1, before[1] + 1)
+    before = pe_simd.LAUNCHES
+    got = pe_simd.pe_execute(*args)         # L = 100: warps across rows
+    assert pe_simd.LAUNCHES == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    # the same rows at L = 128 (the first 28 lanes again): the warp route
+    # the same rows at L = 128 (the first 28 lanes again): row-uniform warps
     wide = [torch.cat([x, x[:, :28]], dim=1).contiguous() if x.shape[1] > 1
             else x for x in args]
-    before = pe_simd.ROUTE_LAUNCHES["warp"]
     got = pe_simd.pe_execute(*wide)
-    assert pe_simd.ROUTE_LAUNCHES["warp"] == before + 1
+    assert pe_simd.LAUNCHES == before + 2
     torch.testing.assert_close(
         got, select_alu(wide[0], wide[2], wide[3], wide[1]), rtol=0, atol=0)
 
@@ -74,44 +72,30 @@ def _offset(x):
     return out
 
 
-# (W, L, base off by one int32, route): the warp route at the simulator's
-# L = 64 (also off a 16-byte boundary: 4-byte loads need no more) and at
-# L = 96; the generic route at the scalar 1 x 1 and L no multiple of 32
-@pytest.mark.parametrize("W,L,off,path", [
-    (1, 1, False, "generic"), (64, 64, False, "warp"),
-    (1024, 64, False, "warp"), (37, 5, False, "generic"),
-    (5, 3, False, "generic"), (9, 96, False, "warp"),
-    (64, 64, True, "warp"), (7, 48, True, "generic")])
+# (W, L, base off by one int32): the simulator's L = 64 (the row a shift;
+# also off a 16-byte boundary: 4-byte loads need no more), L = 96, the
+# scalar 1 x 1 and L no multiple of 32 (the row a division)
+@pytest.mark.parametrize("W,L,off", [
+    (1, 1, False), (64, 64, False), (1024, 64, False), (37, 5, False),
+    (5, 3, False), (9, 96, False), (64, 64, True), (7, 48, True)])
 @pytest.mark.parametrize("masked", [False, True])
-def test_pe_execute_random_on_card(cuda, W, L, off, path, masked):
+def test_pe_execute_random_on_card(cuda, W, L, off, masked):
     op, imm, a, b = _inputs(W, L, W * L, cuda)
     if off:
         a, b = _offset(a), _offset(b)
     ops = frozenset({isa.ADD, isa.DIV, isa.SRL, isa.LUI}) if masked else None
-    before = dict(pe_simd.ROUTE_LAUNCHES)
+    before = pe_simd.LAUNCHES
     got = pe_simd.pe_execute(op, imm, a, b, ops)
-    assert {r: n - before[r] for r, n in pe_simd.ROUTE_LAUNCHES.items()} \
-        == {r: int(r == path) for r in pe_simd.ROUTES}
+    assert pe_simd.LAUNCHES == before + 1
     torch.testing.assert_close(got, select_alu(op, a, b, imm, ops),
                                rtol=0, atol=0)
-    if path == "warp":                # the first design on the same inputs
-        torch.testing.assert_close(
-            pe_simd.pe_execute_on("generic", op, imm, a, b, ops), got,
-            rtol=0, atol=0)
-
-
-def test_pe_execute_warp_route_refuses_what_it_does_not_take(cuda):
-    op, imm, a, b = _inputs(4, 48, 0, cuda)
-    with pytest.raises(ValueError, match="warp route"):
-        pe_simd.pe_execute_on("warp", op, imm, a, b)
 
 
 def test_pe_launch_floor_runs_on_card(cuda):
     op, imm, a, b = _inputs(1024, 64, 0, cuda)
     out = torch.empty_like(a)
     before = pe_simd.LAUNCHES
-    for path in pe_simd.ROUTES:
-        pe_simd.launch_floor(path, op, imm, a, b, out)
+    pe_simd.launch_floor(op, imm, a, b, out)
     torch.cuda.synchronize()
     assert pe_simd.LAUNCHES == before       # counted nowhere
 
@@ -274,29 +258,31 @@ def test_rglru_scan_on_card(cuda, b, s, d, off, path):
     torch.testing.assert_close(h, hr, rtol=0, atol=1e-5)
     torch.testing.assert_close(hf, hfr, rtol=0, atol=1e-5)
     if path == "ring":                # the direct route on the same inputs
-        hd, hfd = rg.rglru_scan_on("direct", a, x, h0)
+        hd, hfd = rg._launch("direct", a, x, h0)
         torch.testing.assert_close(hd, hr, rtol=0, atol=1e-5)
         torch.testing.assert_close(hfd, hfr, rtol=0, atol=1e-5)
 
 
 def test_rglru_ring_design_on_card(cuda):
-    """The built ring kernel has the design its Python mirror states, fits
-    three blocks on an SM and spills nothing."""
-    design = rg.ring_design()
-    want = rg.scan_design(4, 3072, 2560, True)
-    assert (design["tile"], design["steps"], design["stages"],
-            design["smem_bytes"]) == (want["tile"], want["steps"],
-                                      want["stages"], want["smem_bytes"])
-    assert design["blocks_per_sm"] >= 3 and design["spill_bytes"] == 0
+    """The built ring kernel: a warp on 32 channels, its ring of a and b
+    in shared memory with one 8-byte mbarrier a stage, three blocks on an
+    SM (the path's 320 blocks all resident on 132 SMs), no spills."""
+    d = rg.ring_design()
+    assert d["tile"] == 32
+    assert d["smem_bytes"] == 2 * d["stages"] * d["steps"] * d["tile"] * 4 \
+        + 8 * d["stages"]
+    assert d["blocks_per_sm"] >= 3 and d["spill_bytes"] == 0
 
 
 def test_rglru_ring_route_refuses_what_it_does_not_take(cuda):
+    """The ring's C entry refuses a base off 16 bytes or D no multiple of
+    4, which the wrapper sends to the direct route."""
     a = torch.rand((1, 8, 36), device=cuda)
-    with pytest.raises(ValueError, match="ring route"):
-        rg.rglru_scan_on("ring", _offset(a), a, a[:, 0].contiguous())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rg._launch("ring", _offset(a), a, a[:, 0].contiguous())
     a = torch.rand((1, 8, 30), device=cuda)
-    with pytest.raises(ValueError, match="ring route"):
-        rg.rglru_scan_on("ring", a, a, a[:, 0].contiguous())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rg._launch("ring", a, a, a[:, 0].contiguous())
 
 
 @pytest.mark.parametrize("s,b", [(2, 1), (7, 3), (30, 2)])

@@ -1,20 +1,22 @@
-"""The launch designs of the port's CUDA kernels, on the CPU.
+"""The routes of the port's CUDA kernels and the ring's walk, on the CPU.
 
-``rglru_scan`` and ``pe_execute`` each choose a kernel route from shape
-and alignment alone (``rglru_scan.scan_design``, ``pe_simd.design``).
-Here, without a card:
+``rglru_scan`` chooses a kernel route from shape and alignment alone
+(``rglru_scan.scan_route``); ``pe_execute`` has one kernel for every
+shape. Here, without a card:
 
-  * the routes at the main path's shapes and at the edges (ragged
-    channel tile, D no multiple of 4, a base off by one float, S = 1;
-    the scalar 1 x 1, L no multiple of 32), every channel / lane covered
-    exactly once by the grid, no warp of pe_execute's warp route across
-    two rows, shared memory within an H100 block's 227 KB;
-  * the Python mirrors against the constants of the CUDA sources;
+  * the scan's route at the main path's shapes and at the edges (ragged
+    channel tile, D no multiple of 4, a base off by one float, S = 1,
+    S = 0);
   * a plain-PyTorch replay of the ring route's walk (per channel tile, a
-    ring of stages filled the way the tensor map fills them, zeros past
-    the edges, the walk stopping at S) held at 1e-5 against the Pallas
-    kernel in interpret mode and the JAX oracle, as
-    tests/test_torch_rglru.py holds the port's plain version.
+    ring of stages of the sizes csrc/rglru_scan.cu builds, filled the way
+    the tensor map fills them, zeros past the edges, the walk stopping at
+    S) held at 1e-5 against the Pallas kernel in interpret mode and the
+    JAX oracle, as tests/test_torch_rglru.py holds the port's plain
+    version;
+  * ``pe_execute``'s CPU route bit for bit against the Pallas kernel in
+    interpret mode (and the JAX ``select_alu`` where opcodes are pruned)
+    at every (W, L) the simulator's main path launches it at, and at L
+    no multiple of 32.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -27,13 +29,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.ggpu.engine import alu as jax_alu
 from repro.kernels import ref as jax_ref
+from repro.kernels.pe_simd import pe_execute as jax_pe_execute
 from repro.kernels.rglru_scan import rglru_scan as jax_rglru
+from repro_torch.ggpu import isa
 from repro_torch.kernels import pe_simd
 from repro_torch.kernels import rglru_scan as rg
 
 CSRC = Path(rg.__file__).parent / "csrc"
-H100_SMEM = 232_448          # a block's shared memory at most (227 KB)
 
 
 def _constants(source: str) -> dict:
@@ -60,44 +64,8 @@ SCAN_CASES = [
 
 @pytest.mark.parametrize("shape,aligned,want", SCAN_CASES,
                          ids=lambda c: str(c))
-def test_scan_design_routes_and_covers(shape, aligned, want):
-    B, S, D = shape
-    d = rg.scan_design(B, S, D, aligned)
-    assert d["route"] == want
-    assert d["smem_bytes"] <= H100_SMEM
-    cover = np.zeros((B, D), np.int64)
-    if want == "ring":
-        tiles = -(-D // d["tile"])
-        assert d["blocks"] == B * tiles and d["threads"] == d["tile"]
-        for blk in range(d["blocks"]):
-            bi, t = divmod(blk, tiles)
-            ch = t * d["tile"] + np.arange(d["threads"])
-            np.add.at(cover[bi], ch[ch < D], 1)
-        steps = np.zeros(S, np.int64)
-        for k in range(-(-S // d["steps"])):
-            s = k * d["steps"] + np.arange(d["steps"])
-            np.add.at(steps, s[s < S], 1)
-        assert (steps == 1).all()
-    else:
-        idx = np.arange(d["blocks"] * d["threads"])
-        idx = idx[idx < B * D]
-        np.add.at(cover, (idx // D, idx % D), 1)
-    assert (cover == 1).all()
-
-
-def test_scan_design_mirrors_the_cuda_source():
-    c = _constants("rglru_scan.cu")
-    assert (c["kTile"], c["kSteps"], c["kStages"]) == (
-        rg.RING_TILE, rg.RING_STEPS, rg.RING_STAGES)
-    assert (c["kThreads"], c["kChunk"]) == (rg.DIRECT_THREADS,
-                                            rg.DIRECT_CHUNK)
-    d = rg.scan_design(4, 3072, 2560, True)
-    assert d["smem_bytes"] == 2 * c["kStages"] * c["kSteps"] * c["kTile"] * 4 \
-        + 8 * c["kStages"]
-    # three blocks fit an SM's 228 KB (1 KB reserved a block), so the
-    # path's 320 blocks are all resident at once on 132 SMs
-    assert 3 * (d["smem_bytes"] + 1024) <= 233_472
-    assert d["blocks"] <= 3 * 132
+def test_scan_route(shape, aligned, want):
+    assert rg.scan_route(*shape, aligned) == want
 
 
 def ring_replay(a, b, h0):
@@ -107,15 +75,15 @@ def ring_replay(a, b, h0):
     step by step with h = a * h + b until S, h stored only for channels
     below D. Returns (h, h_final, how often each element was written)."""
     B, S, D = a.shape
-    d = rg.scan_design(B, S, D, aligned=True)
-    assert d["route"] == "ring"
-    tile, steps, stages = d["tile"], d["steps"], d["stages"]
+    assert rg.scan_route(B, S, D, aligned=True) == "ring"
+    c = _constants("rglru_scan.cu")
+    tile, steps, stages = c["kTile"], c["kSteps"], c["kStages"]
     tiles = -(-D // tile)
     n_stages = -(-S // steps)
     h = torch.full_like(a, float("nan"))
     h_final = torch.full_like(h0, float("nan"))
     written = torch.zeros(a.shape, dtype=torch.int64)
-    for blk in range(d["blocks"]):
+    for blk in range(B * tiles):
         bi, t = divmod(blk, tiles)
         d0 = t * tile
         ch = d0 + torch.arange(tile)
@@ -168,73 +136,31 @@ def test_ring_replay_vs_pallas_interpret_and_oracle(b, s, d):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_rglru_kernel_route_refuses_cpu_tensors():
-    a = torch.zeros((1, 4, 8))
-    with pytest.raises(ValueError, match="no kernel for device"):
-        rg.rglru_scan_on("ring", a, a, a[:, 0].contiguous())
-
-
 # -- pe_execute ---------------------------------------------------------------
 
-# (W, L, route): the simulator's shapes (8 wavefronts of 64 lanes per CU,
-# 1024 at vec_mul on one CU, 3072 in the batch of three, the scalar
-# baseline's 1 x 1), L a multiple of 32 other than 64, L no multiple of 32
-PE_CASES = [
-    (1024, 64, "warp"),
-    (64, 64, "warp"),
-    (8, 64, "warp"),
-    (3072, 64, "warp"),
-    (3, 96, "warp"),
-    (1, 1, "generic"),
-    (37, 5, "generic"),
-    (5, 48, "generic"),
-    (4096, 1, "generic"),
-]
+# (W, L): the simulator's main-path shapes (64 and 32 wavefronts of 64
+# lanes, the scalar baseline's 1 x 1, 8 wavefronts, vec_mul's 1024 and 512
+# on one CU, 3072 in the batch of three), L no multiple of 32
+PE_SHAPES = [(64, 64), (32, 64), (1, 1), (8, 64), (1024, 64), (512, 64),
+             (3072, 64), (37, 5), (5, 48), (3, 96)]
+PRUNED = frozenset({isa.ADD, isa.MUL, isa.DIV, isa.SRL, isa.LUI})
 
 
-@pytest.mark.parametrize("W,L,want", PE_CASES, ids=lambda c: str(c))
-def test_pe_design_routes_and_covers(W, L, want):
-    d = pe_simd.design(W, L)
-    assert d["route"] == want == pe_simd.route(W, L)
-    n = W * L
-    threads = d["blocks"] * d["threads"]
-    cover = np.zeros(n, np.int64)
-    if want == "warp":
-        # exactly W * L live threads, one lane each, no warp across rows
-        i = np.arange(threads)
-        i = i[i < n]
-        assert i.size == n and threads - n < d["threads"]
-        warp_rows = (i // L).reshape(-1, 32)
-        assert (warp_rows == warp_rows[:, :1]).all()
-        np.add.at(cover, i, 1)
+@pytest.mark.parametrize("W,L", PE_SHAPES, ids=lambda c: str(c))
+@pytest.mark.parametrize("ops", [None, PRUNED], ids=["all", "pruned"])
+def test_pe_execute_cpu_route_at_path_shapes(W, L, ops):
+    g = np.random.default_rng(W * 100 + L)
+    op, imm, a, b = (g.integers(lo, hi, shape).astype(np.int32)
+                     for lo, hi, shape in
+                     ((0, isa.N_OPS, (W, 1)), (-2**31, 2**31, (W, 1)),
+                      (-2**31, 2**31, (W, L)), (-2**31, 2**31, (W, L))))
+    before = pe_simd.LAUNCHES
+    got = pe_simd.pe_execute(*map(torch.from_numpy, (op, imm, a, b)),
+                             ops).numpy()
+    assert pe_simd.LAUNCHES == before      # the CPU route launches nothing
+    if ops is None:
+        want = jax_pe_execute(*map(jnp.asarray, (op, imm, a, b)),
+                              interpret=True)
     else:
-        # a grid-stride loop over every element
-        for start in range(0, n, threads):
-            i = start + np.arange(threads)
-            np.add.at(cover, i[i < n], 1)
-    assert (cover == 1).all()
-
-
-def test_pe_design_mirrors_the_cuda_source():
-    c = _constants("pe_simd.cu")
-    assert c["kWarpThreads"] == pe_simd.WARP_THREADS
-    assert c["kGenericThreads"] == pe_simd.GENERIC_THREADS
-    assert pe_simd.design(1024, 64)["blocks"] == 256
-    # the generic route's grid cap: 16 blocks a SM
-    assert pe_simd.design(10**6, 5)["blocks"] == 16 * 132
-
-
-def test_pe_kernel_route_refuses_cpu_tensors():
-    op = torch.zeros((2, 1), dtype=torch.int32)
-    a = torch.zeros((2, 64), dtype=torch.int32)
-    for path in pe_simd.ROUTES:
-        with pytest.raises(ValueError, match="no kernel for device"):
-            pe_simd.pe_execute_on(path, op, op, a, a)
-
-
-def test_pe_counts_reset():
-    pe_simd.LAUNCHES_BY_SHAPE[(1, 1)] = 3
-    pe_simd.ROUTE_LAUNCHES["generic"] += 2
-    pe_simd.reset_counts()
-    assert pe_simd.LAUNCHES == 0 and not pe_simd.LAUNCHES_BY_SHAPE
-    assert set(pe_simd.ROUTE_LAUNCHES.values()) == {0}
+        want = jax_alu.select_alu(*map(jnp.asarray, (op, a, b, imm)), ops)
+    np.testing.assert_array_equal(got, np.asarray(want))
