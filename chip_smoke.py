@@ -39,13 +39,35 @@ Phases, each fatal on any mismatch:
      card; pe_execute then timed at every (W, L) the path launched it at,
      beside an empty launch of the same grid (the launch floor), weighted
      by the path's launches;
-  5. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
+  5. serving: the async entry points on the 8-CU benches (out_region
+     slices, (0, 0) with nothing downloaded, a uniform cohort region, a
+     batch of slice / nothing / full image) against the golden file, and
+     a BlockPatch and an XorBlockPatch chain against the same chain
+     staged through the host (the producers' memory unchanged); one
+     Scheduler drain (max_inflight 8) of every 8-CU shared bench twice,
+     the golden image against the golden file and a seeded variant,
+     checksum-audited, against its sync run_kernel; the serve benchmark's
+     throughput traffic (vec_mul(32, 512) on 2 CUs, 8 bursts of 16
+     seeded images, chunks of 2) at max_inflight 1 and 8 against sync
+     runs, with launches/s, batch occupancy and the executor's hit rate;
+     a two-request Dep chain; a poisoned request (max_steps 50)
+     quarantined while the rest are served;
+  6. DSE: the CI smoke grid (1 CU at 500 and 667 MHz, xcorr (16, 128),
+     check=True) against benchmarks/baselines/BENCH_dse.json's exact
+     fields, and the nightly grid's axes (48 specs, 33 simulated configs)
+     at xcorr (16, 128) against src/repro_torch/dse/golden_dse.json,
+     which the JAX package computes on the CPU;
+     for phases 4-6 pe_execute's calls are counted by (W, L) per path,
+     each path's wall time, rounds, µs per round and the device's busy
+     share (torch.profiler over a representative piece) reported, and
+     pe_execute timed at every (W, L) the three paths launched;
+  7. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
      numpy-seeded weights, through Engine.generate and the kernels: six
      prompts (3072 to 37 tokens) in two waves of 4 slots, 16 greedy
      tokens; prefill logits and tokens against
      src/repro_torch/models/golden_lm.json, which the JAX package computes
      on the CPU;
-  6. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
+  8. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
      weights) on the same traffic through the kernels, timed with CUDA
      events and no copy of the logits (flash_attention runs 8 times per
      prefill wave, all on its tensor-core route, rglru_scan 18 times, all
@@ -64,6 +86,7 @@ a CUDA device or without the repository's src/ beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -81,9 +104,13 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import init_model  # noqa: E402
 from repro_torch.ggpu import isa, programs  # noqa: E402
-from repro_torch.ggpu.engine import (GGPUConfig, ScalarConfig,  # noqa: E402
-                                     run_kernel, run_kernel_batch,
-                                     run_kernel_cohort)
+from repro_torch import dse  # noqa: E402
+from repro_torch.ggpu.engine import (BlockPatch, GGPUConfig,  # noqa: E402
+                                     ScalarConfig, XorBlockPatch, run_kernel,
+                                     run_kernel_async, run_kernel_batch,
+                                     run_kernel_batch_async,
+                                     run_kernel_cohort,
+                                     run_kernel_cohort_async)
 from repro_torch.ggpu.engine.alu import select_alu  # noqa: E402
 from repro_torch.kernels import _build, pe_simd  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -92,6 +119,8 @@ from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.recurrent import linear_scan  # noqa: E402
+from repro_torch.serve import (Dep, Request, Scheduler,  # noqa: E402
+                               result_checksum, sim_key)
 from repro_torch.serve.llm import Engine, EngineConfig  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "ggpu" / "golden_runs.json"
@@ -129,13 +158,26 @@ def _main_runs():
 
 
 MAIN_RUNS = _main_runs()
+MAIN_RUNS_BY_KEY = {r.key: r for r in MAIN_RUNS}
 COHORT_RUNS = tuple(Run(f"8cu/shared/fir/seed{k}", "fir", "gpu",
                         {"n_cus": 8}, seed=k) for k in range(8))
 BATCH_RUNS = tuple(Run(f"4cu/shared/{n}", n, "gpu", {"n_cus": 4})
                    for n in ("copy", "vec_mul", "div_int"))
 ALL_RUNS = MAIN_RUNS + COHORT_RUNS + BATCH_RUNS
+# The DSE sweep: the CI smoke grid (benchmarks/baselines/BENCH_dse.json)
+# and the nightly grid's full axes, both on xcorr at (16, 128).
+GOLDEN_DSE = ROOT / "src" / "repro_torch" / "dse" / "golden_dse.json"
+BENCH_DSE = ROOT / "benchmarks" / "baselines" / "BENCH_dse.json"
+DSE_BENCH, DSE_SIZES = "xcorr", (16, 128)
+DSE_SMOKE = {"cus": (1,), "freq_targets": (500.0, 667.0)}
+DSE_NIGHTLY = {"cus": (1, 2, 4, 8),
+               "freq_targets": (500.0, 590.0, 667.0, 750.0),
+               "memsys": ("shared", "banked", "banked-iso")}
 REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
            "each) are left out until rounds are captured in CUDA graphs",
+           "DSE nightly grid: xcorr (64, 1024) -> (16, 128) (about 420k "
+           "eager lockstep rounds at full size, which waits for graph "
+           "capture of rounds); all 48 specs and every axis kept",
            "LM golden run: recurrentgemma-2b n_layers 26 -> 3 (one "
            "(rglru, rglru, local) unit) at f32 compute, so that the JAX "
            "package can compute the golden file on a CPU; full width",
@@ -303,12 +345,77 @@ def make_config(run: Run, gpu_cls, scalar_cls):
     return (scalar_cls if run.kind == "scalar" else gpu_cls)(**run.cfg)
 
 
+def _sha(mem) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        mem, dtype="<i4").tobytes()).hexdigest()
+
+
 def summary(mem, info) -> dict:
     """What the golden file holds of one launch."""
-    out = {k: int(info[k]) for k in STAT_KEYS}
-    out["mem_sha256"] = hashlib.sha256(
-        np.ascontiguousarray(mem, dtype="<i4").tobytes()).hexdigest()
-    return out
+    return {**{k: int(info[k]) for k in STAT_KEYS}, "mem_sha256": _sha(mem)}
+
+
+def dse_summary(res) -> dict:
+    """What the DSE golden file holds of a search result (the port's or
+    the JAX package's): per point, in order, its label, the planner's
+    achieved/depth/fmax/area/power as reported, and the cycle-accurate
+    and free-pipelining cycles with the simulator's stats; the frontier,
+    the analytic frontier and the excluded analytic picks."""
+    points = []
+    for p in res.points:
+        row = p.report()
+        m = p.per_bench[DSE_BENCH]
+        points.append({
+            **{k: row[k] for k in ("label", "achieved", "pipeline_depth",
+                                   "fmax_mhz", "area_mm2", "power_w")},
+            "cycles": int(m.cycles), "analytic_cycles": int(m.analytic_cycles),
+            "stats": {k: int(m.info[k]) for k in STAT_KEYS}})
+    return {"points": points,
+            **{key: [p.label() for p in getattr(res, key)]
+               for key in ("frontier", "analytic_frontier",
+                           "excluded_analytic")}}
+
+
+DSE_EXACT_POINT_KEYS = ("label", "achieved", "pipeline_depth", "fmax_mhz",
+                        "area_mm2", "power_w", "time_us", "analytic_time_us",
+                        "on_frontier", "on_analytic_frontier")
+
+
+def dse_artifact_mismatches(fresh: dict, base: dict) -> list:
+    """The exact fields of a ``BENCH_dse.json`` artifact that differ from
+    the baseline's: those ``benchmarks.check_bench`` holds exactly
+    (schema, bench set and cycles, frontier, analytic frontier, excluded
+    picks) and, point by point, the labels, the planner's fields and the
+    cycle-derived times. Wall-clock fields are not compared."""
+    bad = []
+    for key in ("schema", "reference"):
+        if fresh.get(key) != base.get(key):
+            bad.append(f"{key}: {fresh.get(key)!r} != {base.get(key)!r}")
+    fb, bb = fresh.get("benches", {}), base.get("benches", {})
+    if sorted(fb) != sorted(bb):
+        bad.append(f"bench set {sorted(fb)} != {sorted(bb)}")
+    for name in sorted(set(fb) & set(bb)):
+        if fb[name]["cycles"] != bb[name]["cycles"]:
+            bad.append(f"benches.{name}.cycles: {fb[name]['cycles']} != "
+                       f"{bb[name]['cycles']}")
+    for key in ("frontier", "analytic_frontier", "excluded_analytic"):
+        if sorted(fresh.get(key, [])) != sorted(base.get(key, [])):
+            bad.append(f"{key}: {fresh.get(key)} != {base.get(key)}")
+    fp, bp = fresh.get("points", []), base.get("points", [])
+    if len(fp) != len(bp):
+        bad.append(f"{len(fp)} points != {len(bp)}")
+    for f, b in zip(fp, bp):
+        for key in DSE_EXACT_POINT_KEYS:
+            if f.get(key) != b.get(key):
+                bad.append(f"point {b.get('label')}.{key}: {f.get(key)!r} "
+                           f"!= {b.get(key)!r}")
+    return bad
+
+
+def dse_spec() -> dict:
+    """What the DSE golden file must have been computed for."""
+    return {"grid": {k: list(v) for k, v in DSE_NIGHTLY.items()},
+            "bench": DSE_BENCH, "sizes": list(DSE_SIZES)}
 
 
 def emit(obj) -> None:
@@ -442,21 +549,27 @@ def pe_bound(W: int, L: int) -> dict:
             "bytes": nbytes}
 
 
-def pe_shapes_phase(dev, by_shape: dict) -> dict:
-    """pe_execute timed at every (W, L) the main path launched it at, in
-    turns with the launch floor (an empty kernel with the same arguments
-    and grid); the bound; launch-weighted sums over the path. At 1024 x
-    64, the largest shape, also the plain version and eager launches from
-    the host."""
+def pe_shapes_phase(dev, paths: dict) -> dict:
+    """pe_execute timed at every (W, L) the paths (``{path: {(W, L):
+    launches}}``) launched it at, in turns with the launch floor (an empty
+    kernel with the same arguments and grid); the bound; launch-weighted
+    sums over all paths and over each. At 1024 x 64 also the plain version
+    and eager launches from the host."""
+    by_shape: dict = {}
+    for counts in paths.values():
+        for key, n in counts.items():
+            by_shape[key] = by_shape.get(key, 0) + n
     shapes = {}
     for (W, L), n in sorted(by_shape.items(), key=lambda kv: -kv[1]):
         op, imm, a, b = _random_inputs(W, L, 7, dev)
         out = torch.empty_like(a)
         shapes[f"{W}x{L}"] = {
-            "launches": n, **_turns_ms({
-                "ms": lambda: pe_simd.pe_execute(op, imm, a, b),
-                "launch_floor_ms": lambda: pe_simd.launch_floor(
-                    op, imm, a, b, out)}, 100),
+            "launches": n, "launches_by_path": {
+                path: counts.get((W, L), 0)
+                for path, counts in paths.items()}, **_turns_ms({
+                    "ms": lambda: pe_simd.pe_execute(op, imm, a, b),
+                    "launch_floor_ms": lambda: pe_simd.launch_floor(
+                        op, imm, a, b, out)}, 100),
             **pe_bound(W, L)}
     W, L = 1024, 64
     op, imm, a, b = _random_inputs(W, L, 7, dev)
@@ -470,16 +583,25 @@ def pe_shapes_phase(dev, by_shape: dict) -> dict:
         "plain_ms": _device_ms(plain, 10), "eager_ms": _eager_ms(kernel, 200),
         "plain_eager_ms": _eager_ms(plain, 20), **pe_bound(W, L)}
 
-    def total(key):
-        return sum(v["launches"] * v[key] for v in shapes.values())
-    weighted = {"launches": sum(v["launches"] for v in shapes.values()),
-                "ms": total("ms"), "launch_floor_ms": total("launch_floor_ms"),
-                "bound_ms": total("bound_ms")}
-    weighted["gap_ms"] = weighted["ms"] - weighted["bound_ms"]
-    weighted["above_floor_ms"] = weighted["ms"] - weighted["launch_floor_ms"]
+    def weighted(path=None):
+        def n(v):
+            return v["launches"] if path is None \
+                else v["launches_by_path"][path]
+
+        def total(key):
+            return sum(n(v) * v[key] for v in shapes.values())
+        out = {"launches": sum(n(v) for v in shapes.values()),
+               "ms": total("ms"), "launch_floor_ms": total("launch_floor_ms"),
+               "bound_ms": total("bound_ms")}
+        out["gap_ms"] = out["ms"] - out["bound_ms"]
+        out["above_floor_ms"] = out["ms"] - out["launch_floor_ms"]
+        return out
+    by_path = {path: weighted(path) for path in paths}
     emit({"pe_execute_shapes": {"1024x64": largest, "by_shape": shapes,
-                                "launch_weighted": weighted}})
-    return {**largest, "launch_weighted": weighted,
+                                "launch_weighted": weighted(),
+                                "launch_weighted_by_path": by_path}})
+    return {**largest, "launch_weighted": weighted(),
+            "launch_weighted_by_path": by_path,
             "top_shapes": dict(list(shapes.items())[:3])}
 
 
@@ -748,7 +870,7 @@ def rglru_phase(dev) -> dict:
     return {**timing, "shapes": shapes, "design": design}
 
 
-# -- phases 5 and 6: the LM serving path --------------------------------------
+# -- phases 7 and 8: the LM serving path --------------------------------------
 
 def golden_spec() -> dict:
     """What the golden file must have been computed for."""
@@ -1031,7 +1153,7 @@ def lm_profile(model, cfg, prompts, steps: int = 5) -> None:
     emit({"lm_profile": {"rows": len(prompts), "prompt_len": plen, **out}})
 
 
-# -- phases 4 and 5: the simulator on the card -------------------------------
+# -- phase 4: the simulator on the card ---------------------------------------
 
 def _check_run(run: Run, mem, info, expected, out, golden) -> None:
     check(np.array_equal(mem[out], expected),
@@ -1166,6 +1288,423 @@ def _counted_by_shape(fn, by_shape: dict):
     return counted
 
 
+def counted_path(fn, *args):
+    """Run a path with ``pe_execute``'s launch count set to 0 just before
+    it and its calls counted by (W, L). Returns (fn's result, launches,
+    launches by shape, wall s); fails unless every call launched."""
+    by_shape: dict = {}
+    kernel_fn = pe_simd.pe_execute
+    pe_simd.pe_execute = _counted_by_shape(kernel_fn, by_shape)
+    pe_simd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    finally:
+        pe_simd.pe_execute = kernel_fn
+    wall = time.perf_counter() - t0
+    launches = pe_simd.LAUNCHES
+    check(sum(by_shape.values()) == launches,
+          f"pe_execute: {sum(by_shape.values())} calls on {fn.__name__} but "
+          f"{launches} kernel launches")
+    return out, launches, by_shape, wall
+
+
+def _timed(fn, *args):
+    """(fn's result, pe_execute launches it made, wall s)."""
+    before, t0 = pe_simd.LAUNCHES, time.perf_counter()
+    out = fn(*args)
+    return out, pe_simd.LAUNCHES - before, time.perf_counter() - t0
+
+
+def _rounds_line(wall, rounds) -> dict:
+    return {"wall_s": wall, "rounds": rounds,
+            "us_per_round": wall / rounds * 1e6 if rounds else None}
+
+
+# -- phase 5: kernel serving on the card -------------------------------------
+
+# the async entry points' checks: the 8-CU shared benches whose single
+# launches are repeated with out_regions (xcorr and parallel_sel, 55k
+# rounds together, go through run_kernel_async already: run_kernel is
+# run_kernel_async(...).result() on the main path)
+ASYNC_BENCHES = ("mat_mul", "copy", "vec_mul", "fir", "div_int", "reduction")
+VARIANT_SEED = 100      # the drain's seeded variants: VARIANT_SEED + index
+# The serve benchmark's throughput traffic: vec_mul(32, 512) on 2 CUs, 8
+# bursts of 16 seeded images, chunks of 2 launches.
+SERVE_BENCH, SERVE_SIZES, SERVE_CUS = "vec_mul", (32, 512), 2
+SERVE_BURSTS, SERVE_BURST, SERVE_MAX_BATCH, SERVE_SEED = 8, 16, 2, 0
+POISON_MAX_STEPS = 50
+
+
+def _variant(name: str, k: int) -> Run:
+    return Run(f"8cu/shared/{name}/variant", name, "gpu", {"n_cus": 8},
+               seed=VARIANT_SEED + k)
+
+
+def _golden_stats(golden, key) -> dict:
+    return {k: v for k, v in golden[key].items() if k != "mem_sha256"}
+
+
+def _stats(info) -> dict:
+    return {k: int(info[k]) for k in STAT_KEYS}
+
+
+def serve_traffic(b):
+    """The throughput traffic's images: SERVE_BURSTS bursts of SERVE_BURST
+    seeded images of ``b`` (inputs in [-100, 100), as the serve benchmark
+    makes them)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    n = b.gpu_mem.shape[0]
+    return [[np.concatenate([rng.integers(-100, 100, 2 * b.gpu_n)
+                             .astype(np.int32),
+                             np.zeros(n - 2 * b.gpu_n, np.int32)])
+             for _ in range(SERVE_BURST)] for _ in range(SERVE_BURSTS)]
+
+
+def async_parity(benches, golden, dev) -> dict:
+    """run_kernel_async with an out_region slice and with (0, 0) on the
+    8-CU benches; run_kernel_cohort_async with one uniform region (one
+    slice of the chunk); run_kernel_batch_async with a slice, (0, 0) and
+    a full image; a BlockPatch and an XorBlockPatch chain against the
+    same chain staged through the host. Each launch against the golden
+    file (stats; memory by sha256 where the full image is read)."""
+    cfg8 = GGPUConfig(n_cus=8)
+    for name in ASYNC_BENCHES:
+        key = f"8cu/shared/{name}"
+        prog, mem0, n, out, expected = launch(MAIN_RUNS_BY_KEY[key], benches)
+        h = run_kernel_async(prog, mem0, n, cfg8, out_region=(out.start,
+                                                              out.stop),
+                             device=dev)
+        mem, info = h.result()
+        check(h.ready(), f"async {key}: not ready after resolution")
+        check(np.array_equal(mem, expected) and _stats(info)
+              == _golden_stats(golden, key), f"async {key}: region slice "
+              f"or stats differ from the golden file")
+        check(_sha(h.device_mem(0).cpu().numpy()) == golden[key]
+              ["mem_sha256"], f"async {key}: final memory != golden")
+        h0 = run_kernel_async(prog, mem0, n, cfg8, out_region=(0, 0),
+                              device=dev)
+        mem, info = h0.result()
+        # (0, 0): no download, and no full image cached on the handle
+        check(mem.shape == (0,) and h0._mem_full is None
+              and _stats(info) == _golden_stats(golden, key),
+              f"async {key}: out_region (0, 0)")
+    lanes = [launch(r, benches) for r in COHORT_RUNS]
+    out = lanes[0][3]
+    hc = run_kernel_cohort_async(lanes[0][0], [x[1] for x in lanes],
+                                 lanes[0][2], cfg8, device=dev,
+                                 out_regions=[(out.start, out.stop)]
+                                 * len(lanes))
+    for i, (run, lane) in enumerate(zip(COHORT_RUNS, lanes)):
+        check(np.array_equal(hc.mem(i), lane[4])
+              and _stats(hc.info(i)) == _golden_stats(golden, run.key)
+              and _sha(hc.device_mem(i).cpu().numpy())
+              == golden[run.key]["mem_sha256"],
+              f"async cohort {run.key} differs from the golden file")
+    lanes = [launch(r, benches) for r in BATCH_RUNS]
+    regions = [(lanes[0][3].start, lanes[0][3].stop), (0, 0), None]
+    hb = run_kernel_batch_async([x[0] for x in lanes], [x[1] for x in lanes],
+                                [x[2] for x in lanes], GGPUConfig(n_cus=4),
+                                out_regions=regions, device=dev)
+    for i, (run, lane) in enumerate(zip(BATCH_RUNS, lanes)):
+        mem, info = hb.mem(i), hb.info(i)
+        want = (lane[4] if i == 0 else np.zeros(0, np.int32) if i == 1
+                else None)
+        ok = (_sha(mem) == golden[run.key]["mem_sha256"] if want is None
+              else np.array_equal(mem, want))
+        check(ok and _stats(info) == _golden_stats(golden, run.key),
+              f"async batch {run.key} (out_region {regions[i]}) differs")
+    return patch_chain(benches, dev)
+
+
+def patch_chain(benches, dev) -> dict:
+    """Three 8-CU copy launches (the golden image and two seeded ones)
+    feed a consumer cohort's input words from their output words by a
+    BlockPatch of device_mem_block; a second consumer takes seeded bits
+    XORed in by an XorBlockPatch (row 0 zero). Both equal the same chains
+    staged through the host, and the producers' memory is unchanged after
+    the consumers ran."""
+    b, cfg8 = benches["copy"], GGPUConfig(n_cus=8)
+    n, M = b.gpu_n, b.gpu_mem.shape[0]
+    prods = [launch(Run("copy", "copy", "gpu", {}, seed=s), benches)[1]
+             for s in (None, 1, 2)]
+    cons = [np.zeros(M, np.int32) for _ in prods]
+    flips = np.random.default_rng(3).integers(
+        0, 2**31 - 1, (len(prods), n)).astype(np.int32)
+    flips[0] = 0
+    hp = run_kernel_cohort_async(b.gpu_prog, prods, b.gpu_items, cfg8,
+                                 device=dev)
+    before = hp.device_mem_block(0, M).clone()
+    hc = run_kernel_cohort_async(
+        b.gpu_prog, cons, b.gpu_items, cfg8, device=dev,
+        patches=BlockPatch(0, n, hp.device_mem_block(n, 2 * n)))
+    hx = run_kernel_cohort_async(
+        b.gpu_prog, cons, b.gpu_items, cfg8, device=dev,
+        patches=XorBlockPatch(0, n, torch.from_numpy(flips).to(dev)))
+    got_c, got_x = hc.results(), hx.results()
+    check(torch.equal(hp.device_mem_block(0, M), before),
+          "patch chain: a consumer wrote into its producer's memory")
+    staged = [c.copy() for c in cons]
+    flipped = [c.copy() for c in cons]
+    for k, (mem, _) in enumerate(hp.results()):
+        staged[k][:n] = mem[n:2 * n]
+        flipped[k][:n] ^= flips[k]
+    for what, got, images in (("BlockPatch", got_c, staged),
+                              ("XorBlockPatch", got_x, flipped)):
+        want = run_kernel_cohort(b.gpu_prog, images, b.gpu_items, cfg8,
+                                 device=dev)
+        check([summary(*g) for g in got] == [summary(*w) for w in want],
+              f"patch chain: {what} != the chain staged through the host")
+    return {"launches": 3 * len(prods)}
+
+
+def serve_drain(benches, golden, dev):
+    """Every 8-CU shared bench twice, its golden image and a seeded
+    variant, through one Scheduler drain with max_inflight 8. The
+    originals download their full image; the variants their output slice,
+    audited against the checksum of the bench's numpy reference. Returns
+    what ``verify_serve`` checks against sync runs after the count."""
+    sched = Scheduler(GGPUConfig(n_cus=8), max_inflight=8, device=dev)
+    variants = {}
+    for k, name in enumerate(programs.LEGACY_ORDER):
+        key = f"8cu/shared/{name}"
+        prog, mem0, n, out, _ = launch(MAIN_RUNS_BY_KEY[key], benches)
+        sched.submit(prog, mem0, n, tag=key)
+        run = _variant(name, k)
+        vprog, vmem, vn, vout, vexp = launch(run, benches)
+        sched.submit_request(Request(vprog, vmem, vn, tag=run.key,
+                                     out_region=(vout.start, vout.stop),
+                                     audit=result_checksum(vexp)))
+        variants[run.key] = (run, vprog, vmem, vn, vout)
+    results = sched.drain()
+    check(not sched.quarantined and len(results) == 16,
+          f"serve drain: {len(results)} results, quarantined "
+          f"{ {t: str(q.error) for t, q in sched.quarantined.items()} }")
+    for res in results:
+        tag = res.info["tag"]
+        if tag in golden:
+            check(summary(res.mem, res.info) == golden[tag],
+                  f"serve drain {tag}: != golden")
+    st = sched.executor.stats
+    return ([r for r in results if r.info["tag"] in variants], variants,
+            {"dispatches": st.dispatches, "launches": st.launches,
+             "batch_occupancy": st.batch_occupancy})
+
+
+def verify_serve(drained, variants, traffic_out, b, dev) -> None:
+    """The drained variants equal their sync run_kernel (stats and output
+    slice); every served launch of the traffic equals its sync run."""
+    for res in drained:
+        run, prog, mem0, n, out = variants[res.info["tag"]]
+        mem, info = run_kernel(prog, mem0, n, GGPUConfig(n_cus=8),
+                               device=dev)
+        check(np.array_equal(res.mem, mem[out]) and _stats(res.info)
+              == _stats(info), f"serve drain {run.key}: != sync run_kernel")
+    cfg = GGPUConfig(n_cus=SERVE_CUS)
+    images = [m for burst in serve_traffic(b) for m in burst]
+    for i, mem0 in enumerate(images):
+        want = summary(*run_kernel(b.gpu_prog, mem0, b.gpu_items, cfg,
+                                   device=dev))
+        check(summary(*traffic_out[i]) == want,
+              f"serving traffic launch {i}: != sync run_kernel")
+
+
+def serving_traffic(b, dev) -> tuple:
+    """The throughput traffic drained burst by burst at max_inflight 1 and
+    then 8: launches/s, batch occupancy, the executor's hit rate. Both
+    depths serve the same bits. Returns (per-depth rows, the results)."""
+    rows, outs = {}, []
+    for depth in (1, 8):
+        sched = Scheduler(GGPUConfig(n_cus=SERVE_CUS),
+                          max_batch=SERVE_MAX_BATCH, max_inflight=depth,
+                          device=dev)
+        served = []
+        t0 = time.perf_counter()
+        rounds0 = pe_simd.LAUNCHES
+        for burst in serve_traffic(b):
+            for mem in burst:
+                sched.submit(b.gpu_prog, mem, b.gpu_items)
+            served += sched.drain()
+        wall = time.perf_counter() - t0
+        st = sched.executor.stats
+        rows[f"max_inflight_{depth}"] = {
+            "launches": len(served), "launches_per_s": len(served) / wall,
+            **_rounds_line(wall, pe_simd.LAUNCHES - rounds0),
+            **st.report()}
+        outs.append([(r.mem, r.info) for r in served])
+    check([summary(*r) for r in outs[0]] == [summary(*r) for r in outs[1]],
+          "serving traffic: max_inflight 1 and 8 served different bits")
+    return rows, outs[1]
+
+
+def dep_and_poison(benches, golden, dev) -> dict:
+    """A two-request Dep chain (a copy's output words feed a second
+    copy's input words, device-resident) against the chain staged through
+    the host; then one poisoned request (a spinner, max_steps 50)
+    quarantined while the rest are served."""
+    b, cfg8 = benches["copy"], GGPUConfig(n_cus=8)
+    n = b.gpu_n
+    sched = Scheduler(cfg8, device=dev)
+    t0 = sched.submit(b.gpu_prog, b.gpu_mem, b.gpu_items,
+                      out_region=(n, 2 * n))
+    consumer = np.zeros_like(b.gpu_mem)
+    t1 = sched.submit(b.gpu_prog, consumer, b.gpu_items,
+                      deps=[Dep(t0, (0, n))])
+    res = {r.info["ticket"]: r for r in sched.drain()}
+    check(set(res) == {t0, t1} and not sched._resident,
+          f"dep chain: served {sorted(res)}, resident {sched._resident}")
+    host = consumer.copy()
+    host[:n] = res[t0].mem
+    check(summary(res[t1].mem, res[t1].info) == summary(*run_kernel(
+        b.gpu_prog, host, b.gpu_items, cfg8, device=dev)),
+        "dep chain != the chain staged through the host")
+    spin = isa.Assembler()
+    spin.label("spin").beq(0, 0, "spin")
+    sched = Scheduler(GGPUConfig(n_cus=8, max_steps=POISON_MAX_STEPS),
+                      device=dev)
+    good = {}
+    for name in ("copy", "div_int"):
+        key = f"8cu/shared/{name}"
+        prog, mem0, n_items, _, _ = launch(MAIN_RUNS_BY_KEY[key], benches)
+        good[sched.submit(prog, mem0, n_items)] = key
+    t_bad = sched.submit(spin.assemble(), np.zeros(8, np.int32), 8)
+    served = sched.drain()
+    check(set(sched.quarantined) == {t_bad}
+          and "max_steps" in str(sched.quarantined[t_bad].error),
+          f"poisoned request: quarantined {sorted(sched.quarantined)}")
+    check(sorted(r.info["ticket"] for r in served) == sorted(good)
+          and all(summary(r.mem, r.info) == golden[good[r.info["ticket"]]]
+                  for r in served), "poisoned drain: survivors != golden")
+    return {"dep_chain": "ok", "quarantined": [t_bad]}
+
+
+def serve_path(benches, golden, dev) -> dict:
+    """Kernel serving on the card (module doc, phase 5). Returns what
+    ``verify_serve`` needs after the launch count is read."""
+    steps = {}
+    out, rounds, wall = _timed(async_parity, benches, golden, dev)
+    steps["async_parity"] = _rounds_line(wall, rounds)
+    (drained, variants, stats), rounds, wall = _timed(serve_drain, benches,
+                                                      golden, dev)
+    steps["drain"] = {**_rounds_line(wall, rounds), **stats,
+                      "launches_per_s": 16 / wall}
+    b = programs.build(SERVE_BENCH, *SERVE_SIZES)
+    (rows, traffic_out), rounds, wall = _timed(serving_traffic, b, dev)
+    steps["traffic"] = rows
+    ratio = (rows["max_inflight_8"]["launches_per_s"]
+             / rows["max_inflight_1"]["launches_per_s"])
+    steps["traffic"]["launches_per_s_8_over_1"] = ratio
+    poison, rounds, wall = _timed(dep_and_poison, benches, golden, dev)
+    steps["dep_and_poison"] = {**_rounds_line(wall, rounds), **poison}
+    emit({"serve_path": steps})
+    return {"pending": (drained, variants, traffic_out, b), "steps": steps}
+
+
+def busy_share(name, fn) -> dict:
+    """Device busy share of ``fn``: the device kernels' time under
+    torch.profiler over the wall time of the same call unprofiled."""
+    before = pe_simd.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rounds = pe_simd.LAUNCHES - before
+    kernels, profiled_ms = _profiled(fn)
+    busy = _device_ms_of(kernels)
+    return {"what": name, "rounds": rounds, "wall_ms": wall_ms,
+            "wall_ms_per_round": wall_ms / rounds,
+            "device_ms_per_round": busy / rounds,
+            "device_busy_share": busy / wall_ms,
+            "device_ops_per_round": len(kernels) / rounds}
+
+
+def serve_profile(benches, dev) -> dict:
+    """Busy share of the serving phase's two kinds of work: one burst of
+    the throughput traffic (8 cohorts of 2 on 2 CUs), and the first 100
+    rounds of the drain's largest chunk (xcorr, a cohort of 2 on 8 CUs;
+    stopped by max_steps and never resolved)."""
+    b = programs.build(SERVE_BENCH, *SERVE_SIZES)
+    burst = serve_traffic(b)[0]
+
+    def one_burst():
+        sched = Scheduler(GGPUConfig(n_cus=SERVE_CUS),
+                          max_batch=SERVE_MAX_BATCH, max_inflight=8,
+                          device=dev)
+        for mem in burst:
+            sched.submit(b.gpu_prog, mem, b.gpu_items)
+        sched.drain()
+    x = benches["xcorr"]
+    cfg = GGPUConfig(n_cus=8, max_steps=100)
+    xcorr_rounds = lambda: run_kernel_cohort_async(  # noqa: E731
+        x.gpu_prog, [x.gpu_mem, launch(_variant("xcorr", 5), benches)[1]],
+        x.gpu_items, cfg, device=dev)
+    return {"traffic_burst": busy_share("traffic burst", one_burst),
+            "drain_xcorr_cohort": busy_share("xcorr cohort of 2, 100 rounds",
+                                             xcorr_rounds)}
+
+
+# -- phase 6: the DSE sweep on the card --------------------------------------
+
+def dse_path(dev) -> dict:
+    """The CI smoke grid (check=True) against BENCH_dse.json's exact
+    fields, then the nightly grid's full axes against golden_dse.json,
+    both with the Evaluator's simulations on the card."""
+    sizes = {DSE_BENCH: DSE_SIZES}
+    out = {}
+    t0, r0 = time.perf_counter(), pe_simd.LAUNCHES
+    res = dse.search(specs=dse.enumerate_specs(**DSE_SMOKE),
+                     evaluator=dse.Evaluator(benches=(DSE_BENCH,),
+                                             sizes=sizes, check=True,
+                                             device=dev))
+    ref = min(res.frontier, key=lambda p: p.time_us)
+    art = dse.dse_artifact(ref, res)
+    bad = dse_artifact_mismatches(art, json.loads(BENCH_DSE.read_text()))
+    check(not bad, f"DSE smoke grid != {BENCH_DSE.name}: {bad}")
+    out["smoke"] = {**_rounds_line(time.perf_counter() - t0,
+                                   pe_simd.LAUNCHES - r0),
+                    "points": len(res.points), "frontier": art["frontier"],
+                    "reference": art["reference"],
+                    "cycles": art["benches"][DSE_BENCH]["cycles"]}
+    golden = json.loads(GOLDEN_DSE.read_text())
+    check(golden["spec"] == dse_spec(), f"{GOLDEN_DSE.name} was made for "
+          f"{golden['spec']}, not {dse_spec()}: regenerate it")
+    t0, r0 = time.perf_counter(), pe_simd.LAUNCHES
+    ev = dse.Evaluator(benches=(DSE_BENCH,), sizes=sizes, device=dev)
+    res = dse.search(specs=dse.enumerate_specs(**DSE_NIGHTLY), evaluator=ev)
+    wall, rounds = time.perf_counter() - t0, pe_simd.LAUNCHES - r0
+    mine = dse_summary(res)
+    for got, want in zip(mine["points"], golden["points"]):
+        check(got == want, f"DSE nightly point {want['label']}: {got} != "
+              f"golden {want}")
+    for key in ("points", "frontier", "analytic_frontier",
+                "excluded_analytic"):
+        check(mine[key] == golden[key] if key != "points"
+              else len(mine[key]) == len(golden[key]),
+              f"DSE nightly {key}: {mine[key]} != golden {golden[key]}")
+    configs = {(p.point.config, dataclasses.replace(
+        p.point.config, pipeline_depth=0)) for p in res.points}
+    n_configs = len({sim_key(c) for pair in configs for c in pair})
+    out["nightly"] = {**_rounds_line(wall, rounds), "specs": len(res.points),
+                      "simulated_configs": n_configs,
+                      "wall_s_per_config": wall / n_configs,
+                      "frontier": mine["frontier"],
+                      "excluded_analytic": mine["excluded_analytic"],
+                      "cache_size": ev.cache_size()}
+    emit({"dse_path": out})
+    return out
+
+
+def dse_profile(dev) -> dict:
+    """Busy share of one DSE simulation: the first 100 rounds of xcorr
+    (16, 128) on the 1-CU depth-1 config (stopped by max_steps, never
+    resolved)."""
+    x = programs.build(DSE_BENCH, *DSE_SIZES)
+    cfg = GGPUConfig(n_cus=1, pipeline_depth=1, max_steps=100)
+    return busy_share("DSE config, 100 rounds", lambda: run_kernel_async(
+        x.gpu_prog, x.gpu_mem, x.gpu_items, cfg, device=dev))
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
             or not GOLDEN_LM.is_file():
@@ -1226,7 +1765,26 @@ def main() -> int:
           f"{launches} kernel launches")
     verify_folds(pending, dev)
     profile_phase(benches, dev)
-    pe = pe_shapes_phase(dev, by_shape)
+
+    serve, serve_launches, serve_shapes, serve_wall = counted_path(
+        serve_path, benches, golden, dev)
+    emit({"serve_path_counts": {
+        "wall_s": serve_wall, "pe_execute_launches": serve_launches,
+        "pe_execute_launches_by_shape": {
+            f"{W}x{L}": n for (W, L), n in serve_shapes.items()}}})
+    _, rounds, wall = _timed(verify_serve, *serve["pending"], dev)
+    emit({"serve_checks": _rounds_line(wall, rounds)})
+    emit({"serve_profile": serve_profile(benches, dev)})
+    _, dse_launches, dse_shapes, dse_wall = counted_path(dse_path, dev)
+    emit({"dse_path_counts": {
+        "wall_s": dse_wall, "pe_execute_launches": dse_launches,
+        "pe_execute_launches_by_shape": {
+            f"{W}x{L}": n for (W, L), n in dse_shapes.items()}}})
+    emit({"dse_profile": dse_profile(dev)})
+    path_launches = {"simulator": launches, "serve": serve_launches,
+                     "dse": dse_launches}
+    pe = pe_shapes_phase(dev, {"simulator": by_shape, "serve": serve_shapes,
+                               "dse": dse_shapes})
 
     lm_golden(dev)
     flash_launches, rglru_launches, _, ring_launches = lm_main_path(dev)
@@ -1243,7 +1801,9 @@ def main() -> int:
          "bound_ms": pe["bound_ms"], "bound_by": pe["bound_by"],
          "library_ms": None, "shape": [1024, 64], "exact": True,
          "launch_floor_ms": pe["launch_floor_ms"],
+         "path_launches": path_launches,
          "launch_weighted": pe["launch_weighted"],
+         "launch_weighted_by_path": pe["launch_weighted_by_path"],
          "top_shapes": pe["top_shapes"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1271,6 +1831,8 @@ def main() -> int:
          "path_route": rglru["route"], "direct_route_ms": rglru["direct_ms"],
          "shapes": rglru["shapes"]}]})
     check(launches > 0, "the simulator's path launched no pe_execute kernel")
+    check(serve_launches > 0, "the serving path launched no pe_execute")
+    check(dse_launches > 0, "the DSE path launched no pe_execute")
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(rglru_launches > 0, "the LM path launched no rglru_scan")
     emit({"ok": True, "device": {"platform": "gpu",

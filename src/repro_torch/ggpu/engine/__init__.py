@@ -10,21 +10,31 @@ cycle-approximate simulator (counterpart of ``repro.ggpu.engine``).
     functional ``load_store``
   * ``scheduler`` — resident-wavefront selection and the lockstep-round
     cycle model
-  * ``stepper``   — composition root: the round loop and the synchronous
-    single/cohort/batch entry points
+  * ``stepper``   — composition root: the round loop, the single/cohort/
+    batch entry points and their ``_async`` twins (``LaunchHandle``,
+    patches)
 """
 from repro_torch.ggpu.engine.alu import branch_taken, exec_alu, select_alu
 from repro_torch.ggpu.engine.config import GGPUConfig, ScalarConfig
 from repro_torch.ggpu.engine.memsys import (MEMSYS, BankedPerCUCache,
                                             CacheResult, SharedCache,
                                             get_memsys)
-from repro_torch.ggpu.engine.stepper import (KernelLaunchError, MachineState,
-                                             run_kernel, run_kernel_batch,
-                                             run_kernel_cohort)
+from repro_torch.ggpu.engine.stepper import (BlockPatch, KernelLaunchError,
+                                             LaunchHandle, MachineState,
+                                             XorBlockPatch, cohort_rows,
+                                             launch_shards, run_kernel,
+                                             run_kernel_async,
+                                             run_kernel_batch,
+                                             run_kernel_batch_async,
+                                             run_kernel_cohort,
+                                             run_kernel_cohort_async)
 
 __all__ = [
     "GGPUConfig", "ScalarConfig", "MachineState", "KernelLaunchError",
+    "LaunchHandle", "BlockPatch", "XorBlockPatch", "cohort_rows",
+    "launch_shards",
     "run_kernel", "run_kernel_batch", "run_kernel_cohort",
+    "run_kernel_async", "run_kernel_batch_async", "run_kernel_cohort_async",
     "exec_alu", "select_alu", "branch_taken",
     "SharedCache", "BankedPerCUCache", "CacheResult", "MEMSYS", "get_memsys",
 ]

@@ -1,5 +1,5 @@
 """Stepper: composes the engine stages into the SIMT machine (PyTorch port
-of the synchronous part of ``repro.ggpu.engine.stepper``).
+of ``repro.ggpu.engine.stepper``).
 
 The machine is a host loop over lockstep rounds on (B*W, L) tensors. Each
 round is a fixed sequence of device operations with no host
@@ -22,22 +22,40 @@ words [e*M, (e+1)*M)), with cycles/stats/steps per element:
 
   * ``run_kernel``        — one launch (B == 1).
   * ``run_kernel_cohort`` — B launches of one kernel over different memory
-    images, exactly B machines. (The reference pads B to a power of two to
-    bound its compiled shapes; eager PyTorch compiles nothing, so padding
-    would only add work.)
+    images, exactly B machines. (The reference pads B to a power of two,
+    ``cohort_rows``, to bound its compiled shapes; eager PyTorch compiles
+    nothing, so padding would only add work.)
   * ``run_kernel_batch``  — B heterogeneous launches folded the same way:
     each element has its own HALT-padded program rows, item count and
     memory size; the address clip binds at each launch's own size, so the
     zero padding of its memory region is never read or written. (The
     reference ``vmap``s a one-launch core instead; results are the same.)
 
+Each has an ``_async`` twin returning a ``LaunchHandle``; the sync entry
+point is ``..._async(...).results()``, so both share one path. Dispatch
+is **not overlapped** with the host here: the round loop is driven by the
+host, which checks termination once per ``fuse`` rounds, so a dispatch
+returns only after its launch has retired. The handle records a CUDA
+event (``ready()`` queries it) and downloads memory lazily: only the
+declared ``out_region`` slice, nothing for ``(0, 0)``.
+
+**Patches** (device-resident chaining): before the machine runs, regions
+of the freshly staged buffer are overwritten (``copy_``) or XORed
+(``bitwise_xor_``) with device tensors, in list order, so later patches
+win — typically another launch's ``device_mem``/``device_mem_block``,
+which are views of that launch's final memory. Patches only read their
+sources: a producer's memory is never written through such a view. The
+reference donates the staged buffer to XLA; here the machine updates it
+in place, so a handle's final memory *is* the staged buffer
+(``LaunchHandle.staged``).
+
 One write sink (the last memory word) serves every element; it is never
-observable. Not ported yet: ``legacy=True``, the ``_async`` entry points,
-patches, ``out_region`` and ``mesh=`` sharding (ROADMAP.md).
+observable. Not ported yet: ``legacy=True`` (ROADMAP.md, queue 1, item 4)
+and ``mesh=`` sharding (item 9).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +90,8 @@ class KernelLaunchError(RuntimeError):
 
 LEGACY_TODO = ("legacy=True (the seed-faithful reference stepper) is not "
                "ported yet: ROADMAP.md, queue 1, item 4")
+MESH_TODO = ("mesh= sharding of the launch axis is not ported yet: "
+             "ROADMAP.md, queue 1, item 9")
 
 
 def _n_wavefronts(n_items: int, cfg: GGPUConfig) -> int:
@@ -218,29 +238,280 @@ def _info(cycles: int, stats, steps: int, cfg: GGPUConfig) -> dict:
     }
 
 
-def _results(final: MachineState, cfg: GGPUConfig, B: int, M: int,
-             sizes: Sequence[int], what, folded: bool = True
-             ) -> List[Tuple[np.ndarray, dict]]:
-    """Per-launch (mem, info) of the first ``B`` elements (``folded``:
-    info also holds ``batch_size``, as the reference's cohort and batch
-    results do); raises ``KernelLaunchError`` naming the first launch that
-    did not halt."""
-    done = final.done.view(final.cycles.shape[0], -1).all(dim=1).cpu()
-    cycles = final.cycles.cpu().numpy()
-    stats = final.stats.cpu().numpy()
-    steps = final.step.cpu().numpy()
-    for i in range(B):
-        if not bool(done[i]):
-            raise KernelLaunchError(f"{what(i)} hit max_steps without "
-                                    "halting", i)
-    mem = final.mem[:-1].view(-1, M).cpu().numpy()
-    out = []
-    for i in range(B):
-        info = _info(int(cycles[i]), stats[i], int(steps[i]), cfg)
-        if folded:
-            info["batch_size"] = B
-        out.append((mem[i, :sizes[i]], info))
-    return out
+def launch_shards(mesh) -> int:
+    """How many ways the launch axis splits over ``mesh``: 1 without one
+    (the port has no sharding yet; a mesh raises)."""
+    if mesh is None:
+        return 1
+    raise NotImplementedError(MESH_TODO)
+
+
+def cohort_rows(B: int, shards: int = 1) -> int:
+    """The reference's padded cohort size for a ``B``-launch cohort over
+    ``shards`` devices (the per-shard slice rounded up to a power of two).
+    The port runs exactly ``B`` machines; executors key their envelope
+    cache on this bucket so that their hit/miss counters equal the
+    reference's."""
+    b_local = -(-B // shards)
+    return shards * (1 << max(0, b_local - 1).bit_length())
+
+
+Region = Optional[Tuple[int, int]]
+
+
+# -- device-resident chaining (patches) --------------------------------------
+#
+# A patch overwrites (or XORs) a region of a launch's staged memory with a
+# device tensor before the machine runs. Forms, as in the reference:
+#
+#   * per-launch: one entry per launch, each None or a list of
+#     (dst_lo, dst_hi, src) tuples; an optional fourth element "xor" flips
+#     bits instead of overwriting ("set" overwrites);
+#   * BlockPatch(lo, hi, block): block row j overwrites launch j's words
+#     [lo, hi) — one device op for the whole chunk;
+#   * XorBlockPatch(lo, hi, block): the same shape, XORed in (a zero row
+#     leaves its launch untouched).
+
+
+class BlockPatch(NamedTuple):
+    """One uniform staged-memory patch across all ``B`` launches of a
+    chunk: ``block`` is ``(B, hi - lo)``; row ``j`` overwrites launch
+    ``j``'s words ``[lo, hi)``."""
+    lo: int
+    hi: int
+    block: torch.Tensor
+
+
+class XorBlockPatch(NamedTuple):
+    """Like :class:`BlockPatch` but ``block`` row ``j`` is XORed into
+    launch ``j``'s words ``[lo, hi)`` (the bit-flip injection form)."""
+    lo: int
+    hi: int
+    block: torch.Tensor
+
+
+def _check_patches(patches, B: int, sizes: Sequence[int]):
+    """Validate patch bounds against each launch's own memory size."""
+    if isinstance(patches, (BlockPatch, XorBlockPatch)):
+        lo, hi, block = patches
+        if not all(0 <= lo <= hi <= s for s in sizes[:B]):
+            raise ValueError(f"block patch [{lo}, {hi}) outside a launch's "
+                             f"memory image (sizes {list(sizes[:B])})")
+        if tuple(block.shape) != (B, hi - lo):
+            raise ValueError(f"block patch expects shape {(B, hi - lo)}, "
+                             f"got {tuple(block.shape)}")
+        return
+    patches = list(patches)
+    if len(patches) != B:
+        raise ValueError(f"patches has {len(patches)} entries for "
+                         f"{B} launches")
+    for plist, size in zip(patches, sizes):
+        for entry in (plist or ()):
+            lo, hi, src = entry[0], entry[1], entry[2]
+            if len(entry) > 3 and entry[3] not in ("set", "xor"):
+                raise ValueError(f"patch op must be 'set' or 'xor', "
+                                 f"got {entry[3]!r}")
+            if not (0 <= lo <= hi <= size):
+                raise ValueError(f"patch [{lo}, {hi}) outside memory "
+                                 f"image [0, {size})")
+            if tuple(np.shape(src)) != (hi - lo,):
+                raise ValueError(f"patch [{lo}, {hi}) expects "
+                                 f"{hi - lo} words, got {np.shape(src)}")
+
+
+def _patch_region(region: torch.Tensor, src, xor: bool) -> None:
+    """Write ``src`` into ``region`` (a view of a staged buffer) in place:
+    overwrite, or XOR when ``xor``. ``src`` is only read."""
+    src = torch.as_tensor(src, dtype=torch.int32, device=region.device)
+    if xor:
+        region.bitwise_xor_(src)
+    else:
+        region.copy_(src)
+
+
+def _patch_rows(body: torch.Tensor, patches) -> None:
+    """Apply patches in place to a row-per-launch view ``(rows, msize)`` of
+    a staged buffer, in list order (later patches win)."""
+    if isinstance(patches, (BlockPatch, XorBlockPatch)):
+        lo, hi, block = patches
+        _patch_region(body[:block.shape[0], lo:hi], block,
+                      isinstance(patches, XorBlockPatch))
+        return
+    for i, plist in enumerate(patches):
+        for entry in (plist or ()):
+            _patch_region(body[i, entry[0]:entry[1]], entry[2],
+                          len(entry) > 3 and entry[3] == "xor")
+
+
+def _patch_flat(staged: torch.Tensor, msize: int, patches) -> None:
+    """Patch a flat ``(rows*msize + 1,)`` staging buffer in place."""
+    rows = (staged.shape[0] - 1) // msize
+    _patch_rows(staged[:rows * msize].view(rows, msize), patches)
+
+
+def _check_regions(regions: Optional[Sequence[Region]], B: int,
+                   sizes: Sequence[int]) -> Optional[List[Region]]:
+    """Validate per-launch output regions against each launch's own memory
+    size. ``None`` (no slicing) stays ``None`` so the full-image download
+    path is taken."""
+    if regions is None:
+        return None
+    regions = list(regions)
+    if len(regions) != B:
+        raise ValueError(f"out_regions has {len(regions)} entries for "
+                         f"{B} launches")
+    for r, size in zip(regions, sizes):
+        if r is None:
+            continue
+        lo, hi = r
+        if not (0 <= lo <= hi <= size):
+            raise ValueError(f"out_region {r} outside memory image "
+                             f"[0, {size})")
+    if all(r is None for r in regions):
+        return None
+    return regions
+
+
+_WHAT = {"single": lambda i: "kernel",
+         "cohort": lambda i: f"cohort kernel {i}",
+         "batch": lambda i: f"batched kernel {i}"}
+
+
+class LaunchHandle:
+    """One dispatched (possibly folded) kernel launch.
+
+    The dispatch has already run the machine to completion (module doc);
+    ``ready()`` queries the CUDA event recorded after it (True on the
+    CPU). ``wait()`` fetches only the small per-launch arrays (one
+    transfer) and raises ``KernelLaunchError`` naming the first launch that
+    hit ``max_steps``, again on every call. The final memory stays on the
+    device until asked for: ``mem(i)`` downloads launch ``i``'s declared
+    ``out_region`` slice (``(0, 0)``: nothing), the full image otherwise;
+    when every launch declares the same region, one slice of the whole
+    chunk is downloaded. ``results()`` returns the sync entry point's
+    ``(mem, info)`` pairs.
+
+    Memory layout: ``B`` rows of ``msize`` words plus the write sink, one
+    flat tensor for every kind; a batch keeps each launch's own size in
+    ``n_keep``. ``staged`` is the buffer the dispatch staged (and
+    patched): the machine updated it in place, so it holds the final
+    memory — the port's analogue of the reference's donated buffer.
+    """
+
+    def __init__(self, final: MachineState, cfg: GGPUConfig, kind: str,
+                 B: int, msize: int, n_keep: Optional[Sequence[int]],
+                 regions: Optional[Sequence[Region]],
+                 batch_size: Optional[int], staged: torch.Tensor):
+        self._final = final
+        self._cfg = cfg
+        self._kind = kind
+        self._B = B
+        self._msize = msize
+        self._n_keep = list(n_keep) if n_keep is not None else None
+        self._regions = regions            # checked by _check_regions
+        self._batch_size = batch_size
+        self.staged = staged
+        self._event = None
+        if staged.device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(staged.device))
+        self._small = None                     # (cycles, stats, steps)
+        self._mem_full = None
+        self._mems: dict = {}
+
+    def __len__(self) -> int:
+        return self._B
+
+    def ready(self) -> bool:
+        """Non-blocking: has the device finished this dispatch?"""
+        return self._event is None or self._event.query()
+
+    def wait(self) -> "LaunchHandle":
+        """Fetch the small per-launch arrays; raise ``KernelLaunchError``
+        naming the first failing launch."""
+        if self._small is not None:
+            return self
+        f = self._final
+        done = f.done.reshape(self._B, -1).all(dim=1, keepdim=True)
+        small = torch.cat([done.to(torch.int32), f.cycles[:, None], f.stats,
+                           f.step[:, None]], dim=1).cpu().numpy()
+        for i in range(self._B):
+            if not small[i, 0]:
+                raise KernelLaunchError(
+                    f"{_WHAT[self._kind](i)} hit max_steps without halting",
+                    i)
+        self._small = (small[:, 1], small[:, 2:6], small[:, 6])
+        return self
+
+    # -- resolution ----------------------------------------------------------
+
+    def info(self, i: int = 0) -> dict:
+        cycles, stats, steps = self.wait()._small
+        info = _info(int(cycles[i]), stats[i], int(steps[i]), self._cfg)
+        if self._batch_size is not None:
+            info["batch_size"] = self._batch_size
+        return info
+
+    def infos(self) -> List[dict]:
+        return [self.info(i) for i in range(self._B)]
+
+    def mem(self, i: int = 0) -> np.ndarray:
+        """Launch ``i``'s final memory: the declared region slice when one
+        was given, the full image otherwise (downloaded once, cached)."""
+        region = self._regions[i] if self._regions is not None else None
+        if region is None:
+            return self._full_mem(i)
+        if i not in self._mems:
+            lo, hi = region
+            if hi <= lo:
+                self._mems[i] = np.zeros(0, np.int32)
+            elif all(r == region for r in self._regions):
+                block = self.device_mem_block(lo, hi).cpu().numpy()
+                for j in range(self._B):
+                    self._mems[j] = block[j]
+            else:
+                self._mems[i] = self.device_mem(i, region).cpu().numpy()
+        return self._mems[i]
+
+    def _full_mem(self, i: int) -> np.ndarray:
+        if self._mem_full is None:
+            self._mem_full = self._final.mem[:-1].view(
+                self._B, self._msize).cpu().numpy()
+        row = self._mem_full[i]
+        return row[:self._n_keep[i]] if self._n_keep is not None else row
+
+    # -- device-resident access (no host transfer) ---------------------------
+
+    def device_mem(self, i: int = 0,
+                   region: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """Launch ``i``'s final-memory ``[lo, hi)`` slice on the device
+        (default: the full image): a view of the final memory, for feeding
+        a consumer launch's ``patches``. Callers only read it."""
+        if region is None:
+            size = (self._n_keep[i] if self._n_keep is not None
+                    else self._msize)
+            region = (0, size)
+        lo, hi = region
+        base = i * self._msize
+        return self._final.mem[base + lo:base + hi]
+
+    def device_mem_block(self, lo: int, hi: int) -> torch.Tensor:
+        """All ``B`` launches' ``[lo, hi)`` slices as one ``(B, hi - lo)``
+        view of the final memory, for a consumer chunk's ``BlockPatch``."""
+        return self._final.mem[:self._B * self._msize].view(
+            self._B, self._msize)[:, lo:hi]
+
+    def results(self) -> List[Tuple[np.ndarray, dict]]:
+        """All launches as (mem, info) pairs — exactly what the sync entry
+        point returns."""
+        return [(self.mem(i), self.info(i)) for i in range(self._B)]
+
+    def result(self) -> Tuple[np.ndarray, dict]:
+        """Single-launch convenience: the (mem, info) pair."""
+        if self._B != 1:
+            raise ValueError(f"handle holds {self._B} launches; "
+                             "use results()")
+        return self.mem(0), self.info(0)
 
 
 def _stage(mems: Sequence[np.ndarray], device) -> torch.Tensor:
@@ -249,21 +520,82 @@ def _stage(mems: Sequence[np.ndarray], device) -> torch.Tensor:
     return torch.from_numpy(flat).to(device)
 
 
-def run_kernel(prog: np.ndarray, mem0: np.ndarray, n_items: int,
-               cfg: GGPUConfig, *, legacy: bool = False, device=None):
-    """Execute a kernel. Returns (mem_final, info dict). Runs on the card
-    unless ``device`` names another (``"cpu"``: the plain path)."""
+def _dispatch(cfg, kind, progs, mems, n_items, sizes, W, ops, dev, *,
+              n_keep=None, regions=None, patches=None) -> LaunchHandle:
+    """Validate the regions, stage (``mems``: equal-size images), patch and
+    run ``B = len(mems)`` folded machines; the handle of the result."""
+    B, msize = len(mems), mems[0].shape[0]
+    regions = _check_regions(regions, B, sizes)
+    staged = _stage(mems, dev)
+    if patches is not None:
+        _patch_flat(staged, msize, patches)
+    final = run_machine(cfg, torch.from_numpy(progs).to(dev), staged,
+                        n_items, sizes, W, ops)
+    return LaunchHandle(final, cfg, kind, B, msize, n_keep, regions,
+                        None if kind == "single" else B, staged)
+
+
+def run_kernel_async(prog: np.ndarray, mem0: np.ndarray, n_items: int,
+                     cfg: GGPUConfig, *, out_region: Region = None,
+                     patches=None, legacy: bool = False,
+                     device=None) -> LaunchHandle:
+    """Dispatch a single launch; returns its ``LaunchHandle``.
+    ``out_region=(lo, hi)`` limits the eventual memory download to that
+    slice of the final image. ``patches`` optionally overwrites regions of
+    the staged memory with device tensors before the run (a flat list of
+    ``(lo, hi, src[, "xor"])``, or a block patch of one row). Runs on the
+    card unless ``device`` names another (``"cpu"``: the plain path)."""
     if legacy:
         raise NotImplementedError(LEGACY_TODO)
     dev = _device.resolve(device)
     prog = np.asarray(prog, np.int32)
     mem0 = np.asarray(mem0, np.int32)
-    final = run_machine(cfg, torch.from_numpy(prog[None]).to(dev),
-                        _stage([mem0], dev), [int(n_items)],
-                        [mem0.shape[0]], _n_wavefronts(int(n_items), cfg),
-                        _static_ops(prog))
-    return _results(final, cfg, 1, mem0.shape[0], [mem0.shape[0]],
-                    lambda i: "kernel", folded=False)[0]
+    msize = mem0.shape[0]
+    if patches is not None:
+        patches = (patches if isinstance(patches, (BlockPatch, XorBlockPatch))
+                   else [list(patches)])
+        _check_patches(patches, 1, [msize])
+    return _dispatch(cfg, "single", prog[None], [mem0], [int(n_items)],
+                     [msize], _n_wavefronts(int(n_items), cfg),
+                     _static_ops(prog), dev,
+                     regions=None if out_region is None else [out_region],
+                     patches=patches)
+
+
+def run_kernel(prog: np.ndarray, mem0: np.ndarray, n_items: int,
+               cfg: GGPUConfig, *, legacy: bool = False, device=None):
+    """Execute a kernel. Returns (mem_final, info dict). Runs on the card
+    unless ``device`` names another (``"cpu"``: the plain path)."""
+    return run_kernel_async(prog, mem0, n_items, cfg, legacy=legacy,
+                            device=device).result()
+
+
+def run_kernel_cohort_async(prog: np.ndarray, mems: Sequence[np.ndarray],
+                            n_items: int, cfg: GGPUConfig, *,
+                            out_regions: Optional[Sequence[Region]] = None,
+                            patches=None, mesh=None,
+                            device=None) -> LaunchHandle:
+    """Dispatch B same-kernel launches as one folded machine.
+    ``out_regions`` optionally declares one download slice per launch
+    (``None`` entries download that launch's full image). ``patches``: a
+    ``BlockPatch``/``XorBlockPatch`` or one ``[(lo, hi, src), ...]`` list
+    per launch (see the patch protocol above). ``mesh`` is not ported."""
+    prog = np.asarray(prog, np.int32)
+    mems = [np.asarray(m, np.int32) for m in mems]
+    if not mems:
+        raise ValueError("empty cohort")
+    msize = mems[0].shape[0]
+    if any(m.shape[0] != msize for m in mems):
+        raise ValueError("cohort memory images must share one shape")
+    B = len(mems)
+    if patches is not None:
+        _check_patches(patches, B, [msize] * B)
+    launch_shards(mesh)
+    dev = _device.resolve(device)
+    return _dispatch(cfg, "cohort", prog[None], mems, [int(n_items)] * B,
+                     [msize] * B, _n_wavefronts(int(n_items), cfg),
+                     _static_ops(prog), dev, regions=out_regions,
+                     patches=patches)
 
 
 def run_kernel_cohort(prog: np.ndarray, mems: Sequence[np.ndarray],
@@ -271,20 +603,45 @@ def run_kernel_cohort(prog: np.ndarray, mems: Sequence[np.ndarray],
                       ) -> List[Tuple[np.ndarray, dict]]:
     """Execute the same kernel over B memory images as one folded machine
     (B*W wavefronts, per-element accounting). Bit-exact per launch."""
-    mems = [np.asarray(m, np.int32) for m in mems]
+    mems = list(mems)                # materialize once: iterators welcome
     if not mems:
         return []
+    return run_kernel_cohort_async(prog, mems, n_items, cfg,
+                                   device=device).results()
+
+
+def run_kernel_batch_async(progs: Sequence[np.ndarray],
+                           mems: Sequence[np.ndarray],
+                           n_items: Sequence[int], cfg: GGPUConfig, *,
+                           out_regions: Optional[Sequence[Region]] = None,
+                           patches=None, mesh=None,
+                           device=None) -> LaunchHandle:
+    """Dispatch N heterogeneous launches as one folded machine (padding as
+    ``run_kernel_batch``). ``out_regions`` and ``patches`` are checked
+    against each launch's own memory size, not the padded envelope.
+    ``mesh`` is not ported."""
+    if not (len(progs) == len(mems) == len(n_items)):
+        raise ValueError("progs, mems, n_items must have equal length")
+    if not progs:
+        raise ValueError("empty batch")
+    progs = [np.asarray(p, np.int32) for p in progs]
+    mems = [np.asarray(m, np.int32) for m in mems]
+    n_items = [int(n) for n in n_items]
+    sizes = [m.shape[0] for m in mems]
+    if patches is not None:
+        _check_patches(patches, len(progs), sizes)
+    launch_shards(mesh)
     dev = _device.resolve(device)
-    msize = mems[0].shape[0]
-    if any(m.shape[0] != msize for m in mems):
-        raise ValueError("cohort memory images must share one shape")
-    prog = np.asarray(prog, np.int32)
-    B = len(mems)
-    final = run_machine(cfg, torch.from_numpy(prog[None]).to(dev),
-                        _stage(mems, dev), [int(n_items)] * B, [msize] * B,
-                        _n_wavefronts(int(n_items), cfg), _static_ops(prog))
-    return _results(final, cfg, B, msize, [msize] * B,
-                    lambda i: f"cohort kernel {i}")
+    P = max(p.shape[0] for p in progs)
+    M = max(sizes)
+    prog_b = np.stack([np.pad(p, ((0, P - p.shape[0]), (0, 0)))
+                       for p in progs])                  # HALT == all-zeros
+    W = max(_n_wavefronts(n, cfg) for n in n_items)
+    ops = tuple(sorted(set().union(*(_static_ops(p) for p in progs))))
+    return _dispatch(cfg, "batch", prog_b,
+                     [np.pad(m, (0, M - m.shape[0])) for m in mems], n_items,
+                     sizes, W, ops, dev, n_keep=sizes, regions=out_regions,
+                     patches=patches)
 
 
 def run_kernel_batch(progs: Sequence[np.ndarray],
@@ -297,23 +654,8 @@ def run_kernel_batch(progs: Sequence[np.ndarray],
     images zero-padded to a common size; per-launch results and cycle
     counts are exact (each launch's address clip binds at its own memory
     size). Returns a list of (mem_final, info) in submission order."""
-    progs = [np.asarray(p, np.int32) for p in progs]
-    mems = [np.asarray(m, np.int32) for m in mems]
-    n_items = [int(n) for n in n_items]
-    if not (len(progs) == len(mems) == len(n_items)):
-        raise ValueError("progs, mems, n_items must have equal length")
+    progs = list(progs)              # materialize once: iterators welcome
     if not progs:
         return []
-    dev = _device.resolve(device)
-    P = max(p.shape[0] for p in progs)
-    M = max(m.shape[0] for m in mems)
-    prog_b = np.stack([np.pad(p, ((0, P - p.shape[0]), (0, 0)))
-                       for p in progs])                  # HALT == all-zeros
-    sizes = [m.shape[0] for m in mems]
-    W = max(_n_wavefronts(n, cfg) for n in n_items)
-    ops = tuple(sorted(set().union(*(_static_ops(p) for p in progs))))
-    final = run_machine(cfg, torch.from_numpy(prog_b).to(dev),
-                        _stage([np.pad(m, (0, M - m.shape[0])) for m in mems],
-                               dev), n_items, sizes, W, ops)
-    return _results(final, cfg, len(progs), M, sizes,
-                    lambda i: f"batched kernel {i}")
+    return run_kernel_batch_async(progs, list(mems), list(n_items), cfg,
+                                  device=device).results()

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: ``pe_execute`` against its plain version
-``select_alu`` bit for bit, and the simulator's card path against its CPU
+``select_alu`` bit for bit, and the simulator's card path (sync and async
+entry points, patches, a Scheduler drain, a DSE Evaluator) against its CPU
 path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
 ``rglru_scan_ref`` within the tolerances of ``tests/test_kernels.py``, and
 the LM's kernel path against its plain path. Needs an NVIDIA card
@@ -11,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.dse import Evaluator
 from repro_torch.ggpu import isa, programs
-from repro_torch.ggpu.engine import (GGPUConfig, ScalarConfig, run_kernel,
-                                     run_kernel_batch, run_kernel_cohort)
+from repro_torch.ggpu.engine import (BlockPatch, GGPUConfig, ScalarConfig,
+                                     XorBlockPatch, run_kernel,
+                                     run_kernel_batch, run_kernel_cohort,
+                                     run_kernel_cohort_async)
 from repro_torch.ggpu.engine.alu import select_alu
 from repro_torch.kernels import pe_simd
+from repro_torch.serve import Dep, Scheduler
 
 
 @pytest.fixture
@@ -131,6 +136,64 @@ def test_folded_entry_points_on_card(cuda):
                          run_kernel_batch(*args, cfg, device="cpu")):
         np.testing.assert_array_equal(got[0], want[0])
         assert got[1] == want[1]
+
+
+def test_async_handles_and_patches_on_card(cuda):
+    """A handle's CUDA event, its final memory in the staged buffer, a
+    BlockPatch from a producer's device_mem_block and an XorBlockPatch of
+    a card tensor: the card equals the CPU path, and the producer's memory
+    is unchanged after its consumer ran."""
+    b = programs.build("copy", *programs.SMOKE_SIZES["copy"])
+    cfg, n = GGPUConfig(n_cus=2), b.gpu_n
+    mems = [b.gpu_mem, b.gpu_mem[::-1].copy()]
+    flips = np.arange(2 * n, dtype=np.int32).reshape(2, n) * 977
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        hp = run_kernel_cohort_async(b.gpu_prog, mems, b.gpu_items, cfg,
+                                     device=dev)
+        assert hp.device_mem(0).data_ptr() == hp.staged.data_ptr()
+        before = hp.device_mem_block(0, b.gpu_mem.shape[0]).clone()
+        hc = run_kernel_cohort_async(
+            b.gpu_prog, mems, b.gpu_items, cfg, device=dev,
+            patches=BlockPatch(0, n, hp.device_mem_block(n, 2 * n)))
+        hx = run_kernel_cohort_async(
+            b.gpu_prog, mems, b.gpu_items, cfg, device=dev,
+            patches=XorBlockPatch(0, n, torch.from_numpy(flips).to(dev)))
+        out[dev.type] = [hp.results(), hc.results(), hx.results()]
+        assert hp.ready() and hc.ready() and hx.ready()
+        assert torch.equal(hp.device_mem_block(0, b.gpu_mem.shape[0]),
+                           before)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for (gm, gi), (wm, wi) in zip(got, want):
+            np.testing.assert_array_equal(gm, wm)
+            assert gi == wi
+
+
+def test_scheduler_and_evaluator_on_card(cuda):
+    """A Scheduler drain (cohort, batch and a Dep chain) and a DSE
+    Evaluator on the card equal the same on the CPU."""
+    b = programs.build("fir", *programs.SMOKE_SIZES["fir"])
+    c = programs.build("copy", *programs.SMOKE_SIZES["copy"])
+    cfg = GGPUConfig(n_cus=2)
+    got = {}
+    for dev in (cuda, "cpu"):
+        s = Scheduler(cfg, device=dev, max_inflight=2)
+        s.submit(b.gpu_prog, b.gpu_mem, b.gpu_items)
+        s.submit(b.gpu_prog, b.gpu_mem * 3, b.gpu_items)
+        t = s.submit(c.gpu_prog, c.gpu_mem, c.gpu_items,
+                     out_region=(c.gpu_n, 2 * c.gpu_n))
+        s.submit(c.gpu_prog, np.zeros_like(c.gpu_mem), c.gpu_items,
+                 deps=[Dep(t, (0, c.gpu_n))])
+        ev = Evaluator(benches=("xcorr",), sizes={"xcorr": (16, 32)},
+                       device=dev)
+        got[str(dev)] = ([(r.mem, r.info) for r in s.drain()],
+                         ev.cycles(GGPUConfig(n_cus=2, pipeline_depth=1),
+                                   "xcorr")[0])
+    (card, card_cycles), (cpu, cpu_cycles) = got["cuda"], got["cpu"]
+    assert len(card) == 4 and card_cycles == cpu_cycles
+    for (gm, gi), (wm, wi) in zip(card, cpu):
+        np.testing.assert_array_equal(gm, wm)
+        assert gi == wi
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from repro.ggpu.engine import run_kernel as jax_run_kernel
 from repro_torch.convert import bench_from_arrays, config_from_reference
 from repro_torch.ggpu import programs
 from repro_torch.ggpu.engine import run_kernel
+from repro_torch.ggpu.isa import Assembler
 
 STAT_KEYS = ("cycles", "instrs", "mem_ops", "hits", "misses", "steps")
 
@@ -76,3 +77,50 @@ def test_bench_from_arrays_equals_the_port_builder():
             (ours.gpu_items, ours.gpu_out, ours.gpu_n)
         np.testing.assert_array_equal(got.ref(got.gpu_mem, got.gpu_n),
                                       ours.ref(ours.gpu_mem, ours.gpu_n))
+
+
+# -- the serving tests' launches (tests/test_async.py, tests/test_serve.py) --
+
+def small_benches():
+    """The reduced-size builders of all 8 benches that the JAX package's
+    serving tests use."""
+    return {
+        "copy": lambda: programs._copy(16, 128),
+        "vec_mul": lambda: programs._vec_mul(16, 128),
+        "mat_mul": lambda: programs._mat_mul(4, 8),
+        "fir": lambda: programs._fir(16, 64),
+        "div_int": lambda: programs._div_int(16, 64),
+        "xcorr": lambda: programs._xcorr(16, 64),
+        "parallel_sel": lambda: programs._parallel_sel(16, 64),
+        "reduction": lambda: programs._reduction(64, 256),
+    }
+
+
+def pad_prog(prog, rows):
+    """Append unreachable HALT rows: a distinct program (new kernel key)
+    with identical behaviour."""
+    return np.vstack([prog, np.zeros((rows, prog.shape[1]), np.int32)])
+
+
+def variant_mem(b, seed):
+    """A seeded memory image of ``b``'s shape (numpy, as the reference's
+    tests make it)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(-20, 20, b.gpu_mem.shape[0]).astype(np.int32)
+
+
+def spinner():
+    """A program that never halts."""
+    a = Assembler()
+    a.label("spin").beq(0, 0, "spin")
+    return a.assemble()
+
+
+def check_launch(result, direct):
+    """One launch's (mem, info) equals another's in memory and stats
+    (``batch_size`` and tickets aside), as the reference's tests check."""
+    mem, info = result
+    dmem, dinfo = direct
+    np.testing.assert_array_equal(mem, np.asarray(dmem))
+    for k in STAT_KEYS:
+        assert info[k] == dinfo[k], k
