@@ -487,25 +487,31 @@ def test_checksum_audit_retries_or_quarantines(retry):
 
 
 def test_stuck_chunk_times_out_and_is_retried():
-    """A chunk unresolved past the executor's timeout raises DeviceTimeout
-    for every member; a retry policy re-runs them and serves them."""
+    """A chunk whose collection raises DeviceTimeout (index None: the
+    stuck-device failure, blamed on every member) is re-run under a retry
+    policy and served; without one, every member is quarantined with it.
+    The port's executors collect a retired chunk and never time out, so
+    the stuck collection is planted."""
     b = SMALL["copy"]()
-    ex = Executor(CFG, timeout_s=0.0, device=CPU)
+    ex = Executor(CFG, device=CPU)
     stuck = {"n": 1}
-    real_ready = ex.chunk_ready
+    real_collect = ex.collect
 
-    def chunk_ready(pending):
+    def collect(pending):
         if stuck["n"]:
             stuck["n"] -= 1
-            return False
-        return real_ready(pending)
+            raise DeviceTimeout(f"chunk of {len(pending.reqs)} launch(es) "
+                                "not resolved")
+        return real_collect(pending)
 
-    ex.chunk_ready = chunk_ready
+    ex.collect = collect
     s = Scheduler(executor=ex, retry=RetryPolicy(max_retries=1))
-    for seed in (1, 2):
-        s.submit(b.gpu_prog, variant_mem(b, seed), b.gpu_items)
+    reqs = [Request(b.gpu_prog, variant_mem(b, seed), b.gpu_items)
+            for seed in (1, 2)]
+    tickets = [s.submit_request(r) for r in reqs]
     out = s.drain()
-    assert [r.info["ticket"] for r in out] == [0, 1]
+    assert [r.info["ticket"] for r in out] == tickets == [0, 1]
+    assert [r.attempts for r in reqs] == [1, 1]
     check_launch(out[1], jax_run_kernel(b.gpu_prog, variant_mem(b, 2),
                                         b.gpu_items, JCFG))
     stuck["n"] = 1
