@@ -46,8 +46,9 @@ Phases, each fatal on any mismatch:
      staged through the host (the producers' memory unchanged); one
      Scheduler drain (max_inflight 8) of every 8-CU shared bench twice,
      the golden image against the golden file and a seeded variant,
-     checksum-audited, against its sync run_kernel; the serve benchmark's
-     throughput traffic (vec_mul(32, 512) on 2 CUs, 8 bursts of 16
+     checksum-audited, against the numpy reference and the golden
+     file's stats (the JAX package's run of the same variant); the serve
+     benchmark's throughput traffic (vec_mul(32, 512) on 2 CUs, 8 bursts of 16
      seeded images, chunks of 2), three passes at each of max_inflight 1
      and 8 in turns, each served output against the bench's numpy
      reference and sync runs, with launches/s (best and median of the
@@ -59,19 +60,34 @@ Phases, each fatal on any mismatch:
      fields, and the nightly grid's axes (48 specs, 33 simulated configs)
      at xcorr (16, 128) against src/repro_torch/dse/golden_dse.json,
      which the JAX package computes on the CPU;
-     for phases 4-6 pe_execute's calls are counted by (W, L) per path,
+  7. fleet, faults, registry: the serve benchmark's fleet leg (fast
+     sizes: the DSE frontier's two ends over 1 and 8 CUs at 667 MHz, 3 x
+     (copy(16, 1024), reduction(64, 256)) images) through Fleet.drain and
+     pinned_makespan, every exact field against
+     benchmarks/baselines/BENCH_serve.json's "fleet" and every output
+     against the numpy reference; the resilience benchmark's three legs
+     at its fast sizes (SEU chaos with checksum audits against its
+     fault-free control, a device wedged from its first dispatch evicted
+     by the executor timeout, straggler holds hedged and unhedged) with
+     the exact fields, fault and re-route counts and health against
+     benchmarks/baselines/BENCH_resilience.json and the benchmark's
+     invariants (hedged p99 below unhedged among them); the registry's
+     selfcheck and smoke (every bench, memsys, policy, router, traffic
+     pattern and fault scenario) and one cross-product cell under SEU
+     injection, with no problem;
+     for phases 4-7 pe_execute's calls are counted by (W, L) per path,
      each path's wall time, rounds, µs per round and the device's busy
      share (torch.profiler over a representative piece) reported, and
-     at every (W, L) the three paths launched, pe_execute held bit for
+     at every (W, L) the four paths launched, pe_execute held bit for
      bit against select_alu on random inputs (with each opcode set the
      paths gave it there) and then timed;
-  7. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
+  8. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
      numpy-seeded weights, through Engine.generate and the kernels: six
      prompts (3072 to 37 tokens) in two waves of 4 slots, 16 greedy
      tokens; prefill logits and tokens against
      src/repro_torch/models/golden_lm.json, which the JAX package computes
      on the CPU;
-  8. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
+  9. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
      weights) on the same traffic through the kernels, timed with CUDA
      events and no copy of the logits (flash_attention runs 8 times per
      prefill wave, all on its tensor-core route, rglru_scan 18 times, all
@@ -123,8 +139,13 @@ from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.recurrent import linear_scan  # noqa: E402
-from repro_torch.serve import (Dep, Request, Scheduler,  # noqa: E402
-                               result_checksum, sim_key)
+from repro_torch.faults import FaultPlan  # noqa: E402
+from repro_torch.registry import FAULTS  # noqa: E402
+from repro_torch.registry import smoke as registry_smoke  # noqa: E402
+from repro_torch.serve import (Dep, Fleet, FleetResilience,  # noqa: E402
+                               Request, Scheduler, pinned_makespan,
+                               poisson_arrivals, replay, result_checksum,
+                               sim_key)
 from repro_torch.serve.llm import Engine, EngineConfig  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "ggpu" / "golden_runs.json"
@@ -168,6 +189,14 @@ COHORT_RUNS = tuple(Run(f"8cu/shared/fir/seed{k}", "fir", "gpu",
 BATCH_RUNS = tuple(Run(f"4cu/shared/{n}", n, "gpu", {"n_cus": 4})
                    for n in ("copy", "vec_mul", "div_int"))
 ALL_RUNS = MAIN_RUNS + COHORT_RUNS + BATCH_RUNS
+# the serving drain's seeded variant of every 8-CU shared bench (seed
+# VARIANT_SEED + its index in table order); the golden file holds them too
+VARIANT_SEED = 100
+VARIANT_RUNS = tuple(Run(f"8cu/shared/{n}/variant", n, "gpu", {"n_cus": 8},
+                         seed=VARIANT_SEED + k)
+                     for k, n in enumerate(programs.LEGACY_ORDER))
+VARIANTS = {r.bench: r for r in VARIANT_RUNS}
+GOLDEN_RUNS = ALL_RUNS + VARIANT_RUNS    # every launch golden_runs.json has
 # The DSE sweep: the CI smoke grid (benchmarks/baselines/BENCH_dse.json)
 # and the nightly grid's full axes, both on xcorr at (16, 128).
 GOLDEN_DSE = ROOT / "src" / "repro_torch" / "dse" / "golden_dse.json"
@@ -1358,18 +1387,12 @@ def _rounds_line(wall, rounds) -> dict:
 # rounds together, go through run_kernel_async already: run_kernel is
 # run_kernel_async(...).result() on the main path)
 ASYNC_BENCHES = ("mat_mul", "copy", "vec_mul", "fir", "div_int", "reduction")
-VARIANT_SEED = 100      # the drain's seeded variants: VARIANT_SEED + index
 # The serve benchmark's throughput traffic: vec_mul(32, 512) on 2 CUs, 8
 # bursts of 16 seeded images, chunks of 2 launches.
 SERVE_BENCH, SERVE_SIZES, SERVE_CUS = "vec_mul", (32, 512), 2
 SERVE_BURSTS, SERVE_BURST, SERVE_MAX_BATCH, SERVE_SEED = 8, 16, 2, 0
 SERVE_REPS = 3          # passes of the traffic at each depth, in turns
 POISON_MAX_STEPS = 50
-
-
-def _variant(name: str, k: int) -> Run:
-    return Run(f"8cu/shared/{name}/variant", name, "gpu", {"n_cus": 8},
-               seed=VARIANT_SEED + k)
 
 
 def _golden_stats(golden, key) -> dict:
@@ -1380,16 +1403,23 @@ def _stats(info) -> dict:
     return {k: int(info[k]) for k in STAT_KEYS}
 
 
+def _fresh_mems(b, k, rng):
+    """k fresh memory images for bench ``b`` (same envelope, new data:
+    inputs in [-100, 100)), as the serve and resilience benchmarks make
+    them (their ``_bursty_mems`` and ``_fresh_mems``: one function under
+    two names)."""
+    n = b.gpu_mem.shape[0]
+    return [np.concatenate([rng.integers(-100, 100,
+                                         2 * b.gpu_n).astype(np.int32),
+                            np.zeros(n - 2 * b.gpu_n, np.int32)])
+            for _ in range(k)]
+
+
 def serve_traffic(b):
     """The throughput traffic's images: SERVE_BURSTS bursts of SERVE_BURST
-    seeded images of ``b`` (inputs in [-100, 100), as the serve benchmark
-    makes them)."""
+    seeded images of ``b``."""
     rng = np.random.default_rng(SERVE_SEED)
-    n = b.gpu_mem.shape[0]
-    return [[np.concatenate([rng.integers(-100, 100, 2 * b.gpu_n)
-                             .astype(np.int32),
-                             np.zeros(n - 2 * b.gpu_n, np.int32)])
-             for _ in range(SERVE_BURST)] for _ in range(SERVE_BURSTS)]
+    return [_fresh_mems(b, SERVE_BURST, rng) for _ in range(SERVE_BURSTS)]
 
 
 def async_parity(benches, golden, dev) -> dict:
@@ -1492,45 +1522,43 @@ def patch_chain(benches, dev) -> dict:
 def serve_drain(benches, golden, dev):
     """Every 8-CU shared bench twice, its golden image and a seeded
     variant, through one Scheduler drain with max_inflight 8. The
-    originals download their full image; the variants their output slice,
-    audited against the checksum of the bench's numpy reference. Returns
-    what ``verify_serve`` checks against sync runs after the count."""
+    originals download their full image, held against the golden file;
+    the variants their output slice, audited against the checksum of the
+    bench's numpy reference and held against it and against the golden
+    file's stats (the JAX reference's run of the same variant)."""
     sched = Scheduler(GGPUConfig(n_cus=8), max_inflight=8, device=dev)
-    variants = {}
-    for k, name in enumerate(programs.LEGACY_ORDER):
+    expected = {}
+    for name in programs.LEGACY_ORDER:
         key = f"8cu/shared/{name}"
         prog, mem0, n, out, _ = launch(MAIN_RUNS_BY_KEY[key], benches)
         sched.submit(prog, mem0, n, tag=key)
-        run = _variant(name, k)
+        run = VARIANTS[name]
         vprog, vmem, vn, vout, vexp = launch(run, benches)
         sched.submit_request(Request(vprog, vmem, vn, tag=run.key,
                                      out_region=(vout.start, vout.stop),
                                      audit=result_checksum(vexp)))
-        variants[run.key] = (run, vprog, vmem, vn, vout)
+        expected[run.key] = vexp
     results = sched.drain()
     check(not sched.quarantined and len(results) == 16,
           f"serve drain: {len(results)} results, quarantined "
           f"{ {t: str(q.error) for t, q in sched.quarantined.items()} }")
     for res in results:
         tag = res.info["tag"]
-        if tag in golden:
+        if tag in expected:
+            check(np.array_equal(res.mem, expected[tag]) and _stats(
+                res.info) == _golden_stats(golden, tag),
+                f"serve drain {tag}: != the numpy reference or golden")
+        else:
             check(summary(res.mem, res.info) == golden[tag],
                   f"serve drain {tag}: != golden")
     st = sched.executor.stats
-    return ([r for r in results if r.info["tag"] in variants], variants,
-            {"dispatches": st.dispatches, "launches": st.launches,
-             "batch_occupancy": st.batch_occupancy})
+    return {"dispatches": st.dispatches, "launches": st.launches,
+            "batch_occupancy": st.batch_occupancy}
 
 
-def verify_serve(drained, variants, traffic_out, b, dev) -> None:
-    """The drained variants equal their sync run_kernel (stats and output
-    slice); every served launch of the traffic equals its sync run."""
-    for res in drained:
-        run, prog, mem0, n, out = variants[res.info["tag"]]
-        mem, info = run_kernel(prog, mem0, n, GGPUConfig(n_cus=8),
-                               device=dev)
-        check(np.array_equal(res.mem, mem[out]) and _stats(res.info)
-              == _stats(info), f"serve drain {run.key}: != sync run_kernel")
+def verify_serve(traffic_out, b, dev) -> None:
+    """Every served launch of the throughput traffic equals its sync
+    run."""
     cfg = GGPUConfig(n_cus=SERVE_CUS)
     images = [m for burst in serve_traffic(b) for m in burst]
     for i, mem0 in enumerate(images):
@@ -1634,8 +1662,7 @@ def serve_path(benches, golden, dev) -> dict:
     steps = {}
     out, rounds, wall = _timed(async_parity, benches, golden, dev)
     steps["async_parity"] = _rounds_line(wall, rounds)
-    (drained, variants, stats), rounds, wall = _timed(serve_drain, benches,
-                                                      golden, dev)
+    stats, rounds, wall = _timed(serve_drain, benches, golden, dev)
     steps["drain"] = {**_rounds_line(wall, rounds), **stats,
                       "launches_per_s": 16 / wall}
     b = programs.build(SERVE_BENCH, *SERVE_SIZES)
@@ -1647,7 +1674,7 @@ def serve_path(benches, golden, dev) -> dict:
     poison, rounds, wall = _timed(dep_and_poison, benches, golden, dev)
     steps["dep_and_poison"] = {**_rounds_line(wall, rounds), **poison}
     emit({"serve_path": steps})
-    return {"pending": (drained, variants, traffic_out, b), "steps": steps}
+    return {"pending": (traffic_out, b), "steps": steps}
 
 
 def busy_share(name, fn) -> dict:
@@ -1687,7 +1714,7 @@ def serve_profile(benches, dev) -> dict:
     x = benches["xcorr"]
     cfg = GGPUConfig(n_cus=8, max_steps=100)
     xcorr_rounds = lambda: run_kernel_cohort_async(  # noqa: E731
-        x.gpu_prog, [x.gpu_mem, launch(_variant("xcorr", 5), benches)[1]],
+        x.gpu_prog, [x.gpu_mem, launch(VARIANTS["xcorr"], benches)[1]],
         x.gpu_items, cfg, device=dev)
     return {"traffic_burst": busy_share("traffic burst", one_burst),
             "drain_xcorr_cohort": busy_share("xcorr cohort of 2, 100 rounds",
@@ -1753,6 +1780,335 @@ def dse_profile(dev) -> dict:
     cfg = GGPUConfig(n_cus=1, pipeline_depth=1, max_steps=100)
     return busy_share("DSE config, 100 rounds", lambda: run_kernel_async(
         x.gpu_prog, x.gpu_mem, x.gpu_items, cfg, device=dev))
+
+
+# -- phase 7: the fleet, fault injection and the registry on the card --------
+
+BENCH_SERVE = ROOT / "benchmarks" / "baselines" / "BENCH_serve.json"
+BENCH_RESILIENCE = ROOT / "benchmarks" / "baselines" / "BENCH_resilience.json"
+# The serve benchmark's fleet leg at its fast sizes: the two ends of the
+# DSE frontier over 1 and 8 CUs at 667 MHz (xcorr (16, 128), memo hits
+# after dse_path), and 3 x (copy(16, 1024), reduction(64, 256)) images.
+FLEET_SPECS = {"cus": (1, 8), "freq_targets": (667.0,)}
+FLEET_WIDE, FLEET_NARROW, FLEET_REPS, FLEET_SEED = (16, 1024), (64, 256), 3, 1
+FLEET_EXACT = ("devices", "placement", "busy_us", "eta_us", "makespan_us",
+               "pinned_us", "speedup_vs_best_pin", "beats_both_pins")
+# The resilience benchmark's three legs at its --fast sizes: vec_mul(16,
+# 128) on dev0 (1 CU) and dev1 (2 CUs), max_batch 8, plan seed 0, the
+# image seeds 11 / 13 / 17 and the arrival seed 5.
+RES_BENCH, RES_SIZES, RES_SEED, RES_MAX_BATCH = "vec_mul", (16, 128), 0, 8
+RES_SEU_N, RES_SEU_REPS, RES_SEU_WARM = 24, 3, 2
+RES_LOSS_N, RES_LOSS_TIMEOUT_S = 8, 0.2
+RES_STRAGGLER_N, RES_STRAGGLER_DELAY_S, RES_STRAGGLER_HZ = 24, 0.25, 60.0
+# the fields benchmarks/check_bench.py compares exactly, plus the fault
+# and re-route counts and the health the JAX package gives the baseline
+RES_EXACT = {
+    "seu": ("n", "seed", "served", "served_correct", "quarantined",
+            "silently_corrupted", "injections", "health"),
+    "device_loss": ("n", "seed", "served", "lost", "quarantined", "evicted",
+                    "bit_exact", "device_state", "faults", "reroutes"),
+    "straggler": ("n",)}
+# resilience_bench.invariant_problems' limits
+MIN_SERVED_CORRECT, MIN_GOODPUT_RATIO = 0.999, 0.2
+CELL = ("shared", "cohort", "earliest-finish", "seu")
+
+
+def fleet_leg(dev) -> tuple:
+    """The serve benchmark's fleet leg (fast): route the mixed trace over
+    the frontier's two ends, drain, price each pinned placement; every
+    served output against the bench's numpy reference. Returns (report,
+    devices, trace)."""
+    res = dse.search(specs=dse.enumerate_specs(**FLEET_SPECS),
+                     evaluator=dse.Evaluator(benches=(DSE_BENCH,),
+                                             sizes={DSE_BENCH: DSE_SIZES},
+                                             device=dev))
+    frontier = sorted(res.frontier, key=lambda p: p.time_us)
+    check(frontier[0] is not frontier[-1], "fleet: the DSE frontier "
+          "collapsed to one design")
+    devices = [(p.label(), p.point.config) for p in (frontier[0],
+                                                     frontier[-1])]
+    wide = programs.build("copy", *FLEET_WIDE)
+    narrow = programs.build("reduction", *FLEET_NARROW)
+    rng = np.random.default_rng(FLEET_SEED)
+    trace, benches_of = [], []
+    for _ in range(FLEET_REPS):
+        for b in (wide, narrow):
+            trace.append((b.gpu_prog, _fresh_mems(b, 1, rng)[0],
+                          b.gpu_items))
+            benches_of.append(b)
+    fleet = Fleet(devices, device=dev)
+    tickets = [fleet.submit(*t) for t in trace]
+    t0 = time.perf_counter()
+    out = fleet.drain()
+    wall = time.perf_counter() - t0
+    check([r.info["ticket"] for r in out] == tickets, "fleet: lost a launch")
+    for res_, b, (_, mem0, _) in zip(out, benches_of, trace):
+        check(np.array_equal(res_.mem[b.gpu_out], b.ref(mem0, b.gpu_n)),
+              f"fleet: ticket {res_.info['ticket']} on "
+              f"{res_.info['device']} != the numpy reference")
+    rep = fleet.report()
+    pinned = {name: round(pinned_makespan(cfg, trace, device=dev), 3)
+              for name, cfg in devices}
+    best = min(pinned.values())
+    rep.update(pinned_us=pinned,
+               speedup_vs_best_pin=round(best / rep["makespan_us"], 3),
+               beats_both_pins=rep["makespan_us"] < best)
+    base = json.loads(BENCH_SERVE.read_text())["fleet"]
+    bad = {k: (rep[k], base[k]) for k in FLEET_EXACT if rep[k] != base[k]}
+    check(not bad, f"fleet != {BENCH_SERVE.name}: {bad}")
+    return {**rep, "drain_wall_s": wall}, devices, trace
+
+
+def _res_devices():
+    return [("dev0", GGPUConfig(n_cus=1)), ("dev1", GGPUConfig(n_cus=2))]
+
+
+def _res_reference(sched, b, mems):
+    """Fault-free oracle results for ``mems`` in submission order, each
+    also against the bench's numpy reference."""
+    tickets = [sched.submit(b.gpu_prog, m, b.gpu_items) for m in mems]
+    by = {r.info["ticket"]: r for r in sched.flush()}
+    refs = [by[t] for t in tickets]
+    for r, m in zip(refs, mems):
+        check(np.array_equal(r.mem[b.gpu_out], b.ref(m, b.gpu_n)),
+              "resilience oracle != the numpy reference")
+    return refs
+
+
+def _serve_trace(fleet, b, mems, refs, audit):
+    """Serve ``mems`` through ``fleet`` (audited when asked), timing the
+    drain; (wall s, correctness accounting against ``refs``)."""
+    tickets = [fleet.submit_request(Request(
+        b.gpu_prog, m, b.gpu_items,
+        audit=result_checksum(ref.mem) if audit else None))
+        for m, ref in zip(mems, refs)]
+    t0 = time.perf_counter()
+    out = fleet.drain()
+    wall = time.perf_counter() - t0
+    by = {r.info["ticket"]: r for r in out}
+    correct = sum(1 for t, ref in zip(tickets, refs) if t in by
+                  and np.array_equal(by[t].mem, ref.mem))
+    return {"wall_s": wall, "served": len(out), "served_correct": correct,
+            "silently_corrupted": len(out) - correct,
+            "quarantined": len(fleet.quarantined)}
+
+
+def res_seu(b, dev) -> dict:
+    """SEU chaos against its fault-free control (the same resilience
+    machinery under an inactive plan) over identical traces: goodput is
+    the best of RES_SEU_REPS passes after RES_SEU_WARM warm ones."""
+    rng = np.random.default_rng(11)
+    oracle = Scheduler(GGPUConfig(n_cus=2), max_batch=RES_MAX_BATCH,
+                       device=dev)
+
+    def run(scenario):
+        fleet = Fleet(_res_devices(), max_batch=RES_MAX_BATCH, device=dev,
+                      **scenario.fleet_kwargs())
+        for _ in range(RES_SEU_WARM):
+            mems = _fresh_mems(b, RES_SEU_N, rng)
+            _serve_trace(fleet, b, mems, _res_reference(oracle, b, mems),
+                         scenario.audit)
+        total = {"served": 0, "served_correct": 0, "silently_corrupted": 0,
+                 "goodput_per_s": 0.0}
+        for _ in range(RES_SEU_REPS):
+            mems = _fresh_mems(b, RES_SEU_N, rng)
+            stats = _serve_trace(fleet, b, mems,
+                                 _res_reference(oracle, b, mems),
+                                 scenario.audit)
+            total["goodput_per_s"] = max(total["goodput_per_s"],
+                                         RES_SEU_N / stats.pop("wall_s"))
+            for key in ("served", "served_correct", "silently_corrupted"):
+                total[key] += stats[key]
+        total["quarantined"] = len(fleet.quarantined)
+        return fleet, total
+
+    control = FAULTS.get("seu")(seed=RES_SEED)
+    control.plan = FaultPlan(seed=RES_SEED)
+    _, clean = run(control)
+    chaos_sc = FAULTS.get("seu")(seed=RES_SEED)
+    fleet, chaos = run(chaos_sc)
+    offered = RES_SEU_REPS * RES_SEU_N
+    return {"kernel": b.name, "n": offered, "seed": RES_SEED,
+            "injections": len(chaos_sc.decision_log()),
+            "served": chaos["served"],
+            "served_correct": chaos["served_correct"],
+            "served_correct_fraction": round(
+                chaos["served_correct"] / offered, 6),
+            "silently_corrupted": chaos["silently_corrupted"],
+            "quarantined": chaos["quarantined"],
+            "clean_goodput_per_s": round(clean["goodput_per_s"], 2),
+            "chaos_goodput_per_s": round(chaos["goodput_per_s"], 2),
+            "goodput_ratio": round(chaos["goodput_per_s"]
+                                   / clean["goodput_per_s"], 3),
+            "health": fleet.report()["health"]}
+
+
+def res_device_loss(b, dev) -> dict:
+    """dev0 wedges from its first dispatch: the executor timeout surfaces
+    it, retries exhaust, the fleet evicts it and re-routes its backlog;
+    every result bit-exact with the fault-free oracle."""
+    rng = np.random.default_rng(13)
+    mems = _fresh_mems(b, RES_LOSS_N, rng)
+    refs = _res_reference(Scheduler(GGPUConfig(n_cus=2),
+                                    max_batch=RES_MAX_BATCH, device=dev),
+                          b, mems)
+    sc = FAULTS.get("device-loss")(seed=RES_SEED, stuck_after=0,
+                                   timeout_s=RES_LOSS_TIMEOUT_S)
+    fleet = Fleet(_res_devices(), max_batch=RES_MAX_BATCH, device=dev,
+                  **sc.fleet_kwargs())
+    t0 = time.perf_counter()
+    stats = _serve_trace(fleet, b, mems, refs, sc.audit)
+    wall = time.perf_counter() - t0
+    rep = fleet.report()
+    return {"kernel": b.name, "n": RES_LOSS_N, "seed": RES_SEED,
+            "timeout_s": RES_LOSS_TIMEOUT_S, "served": stats["served"],
+            "bit_exact": stats["served_correct"] == stats["served"],
+            "lost": RES_LOSS_N - stats["served"] - stats["quarantined"],
+            "quarantined": stats["quarantined"],
+            "evicted": rep["device_state"]["dev0"] == "evicted",
+            "device_state": rep["device_state"],
+            "reroutes": rep["reroutes"], "faults": rep["faults"],
+            "wall_s": wall, "decision_log": len(sc.decision_log())}
+
+
+def res_straggler(b, dev) -> dict:
+    """One open-loop Poisson trace replayed under identical straggler
+    injection, hedged and unhedged (after warming every cohort size)."""
+    rng = np.random.default_rng(17)
+    mems = _fresh_mems(b, 16, rng)
+    arrivals = poisson_arrivals(RES_STRAGGLER_HZ, RES_STRAGGLER_N, seed=5)
+
+    def run(scenario):
+        fleet = Fleet(_res_devices(), max_batch=RES_MAX_BATCH, device=dev,
+                      **scenario.fleet_kwargs())
+        k = 8
+        while k >= 1:
+            for m in _fresh_mems(b, k, rng):
+                fleet.submit_request(Request(b.gpu_prog, m, b.gpu_items))
+            fleet.drain()
+            k //= 2
+        res = replay(fleet, arrivals,
+                     lambda i: Request(b.gpu_prog, mems[i % len(mems)],
+                                       b.gpu_items))
+        return fleet, res
+
+    hedged_sc = FAULTS.get("straggler")(seed=RES_SEED,
+                                        delay_s=RES_STRAGGLER_DELAY_S)
+    unhedged_sc = FAULTS.get("straggler")(seed=RES_SEED,
+                                          delay_s=RES_STRAGGLER_DELAY_S)
+    unhedged_sc.resilience = FleetResilience()   # same machinery, no hedge
+    hedged_fleet, hedged = run(hedged_sc)
+    _, unhedged = run(unhedged_sc)
+    return {"kernel": b.name, "n": RES_STRAGGLER_N, "seed": RES_SEED,
+            "arrivals": "poisson",
+            "straggler_delay_s": RES_STRAGGLER_DELAY_S,
+            "hedges_fired": hedged_fleet.report()["hedged"],
+            "hedged": hedged.report(), "unhedged": unhedged.report(),
+            "hedge_p99_speedup": round(unhedged.p99_ms / hedged.p99_ms, 3)
+            if hedged.p99_ms else 0.0}
+
+
+def resilience_problems(art: dict) -> list:
+    """resilience_bench.invariant_problems' invariants."""
+    s, d, st = art["seu"], art["device_loss"], art["straggler"]
+    bad = []
+    if s["served_correct_fraction"] < MIN_SERVED_CORRECT:
+        bad.append(f"seu.served_correct_fraction "
+                   f"{s['served_correct_fraction']}")
+    if s["silently_corrupted"]:
+        bad.append(f"seu.silently_corrupted {s['silently_corrupted']}")
+    if s["goodput_ratio"] < MIN_GOODPUT_RATIO:
+        bad.append(f"seu.goodput_ratio {s['goodput_ratio']}")
+    if not d["evicted"]:
+        bad.append("device_loss: dev0 was never evicted")
+    if d["lost"]:
+        bad.append(f"device_loss.lost {d['lost']}")
+    if not d["bit_exact"]:
+        bad.append("device_loss.bit_exact is false")
+    if not st["hedged"]["p99_ms"] < st["unhedged"]["p99_ms"]:
+        bad.append(f"straggler: hedged p99 {st['hedged']['p99_ms']} ms is "
+                   f"not below unhedged {st['unhedged']['p99_ms']} ms")
+    if not st["hedges_fired"]:
+        bad.append("straggler: no hedge fired")
+    for leg in ("hedged", "unhedged"):
+        if st[leg]["served"] != st["n"]:
+            bad.append(f"straggler.{leg}: served {st[leg]['served']} of "
+                       f"{st['n']}")
+    return bad
+
+
+def resilience_legs(dev) -> dict:
+    """The resilience benchmark's three legs (fast): the exact fields
+    against BENCH_resilience.json, and its invariants."""
+    b = programs.build(RES_BENCH, *RES_SIZES)
+    art, walls = {}, {}
+    for leg, fn in (("seu", res_seu), ("device_loss", res_device_loss),
+                    ("straggler", res_straggler)):
+        t0 = time.perf_counter()
+        art[leg] = fn(b, dev)
+        walls[leg] = time.perf_counter() - t0
+    base = json.loads(BENCH_RESILIENCE.read_text())
+    bad = {f"{leg}.{k}": (art[leg][k], base[leg][k])
+           for leg, keys in RES_EXACT.items() for k in keys
+           if art[leg][k] != base[leg][k]}
+    check(not bad, f"resilience != {BENCH_RESILIENCE.name}: {bad}")
+    bad = resilience_problems(art)
+    check(not bad, f"resilience invariants: {bad}")
+    # wall-clock numbers beside the baseline's, which were taken on a CPU
+    # host by the JAX package: printed, not gated
+    cpu = {"seu": {k: base["seu"][k] for k in (
+        "clean_goodput_per_s", "chaos_goodput_per_s", "goodput_ratio")},
+        "straggler": {"hedges_fired": base["straggler"]["hedges_fired"],
+                      **{f"{leg}_{k}": base["straggler"][leg][k]
+                         for leg in ("hedged", "unhedged")
+                         for k in ("p50_ms", "p99_ms")}}}
+    return {**art, "leg_wall_s": walls, "baseline_cpu_host": cpu}
+
+
+def registry_leg(dev) -> dict:
+    """selfcheck and smoke_all on the card with no problem, then one
+    cross-product cell under SEU injection with nothing lost."""
+    out = {}
+    for name, fn in (("selfcheck", registry_smoke.selfcheck),
+                     ("smoke_all", lambda emit: registry_smoke.smoke_all(
+                         emit, device=dev)),
+                     ("cell", lambda emit: registry_smoke.run_cell(
+                         *CELL[:3], emit, fault=CELL[3], device=dev))):
+        lines = []
+        t0, r0 = time.perf_counter(), pe_simd.LAUNCHES
+        bad = fn(lines.append)
+        check(not bad, f"registry {name}: {bad}")
+        out[name] = {**_rounds_line(time.perf_counter() - t0,
+                                    pe_simd.LAUNCHES - r0),
+                     "lines": lines}
+    out["cell"]["cell"] = list(CELL)
+    return out
+
+
+def fleet_path(dev) -> dict:
+    """The fleet, fault and registry layers on the card (module doc,
+    phase 7). Returns the fleet leg's devices and trace (for
+    fleet_profile) and the phase's steps."""
+    steps = {}
+    (fleet, devices, trace), rounds, wall = _timed(fleet_leg, dev)
+    steps["fleet"] = {**_rounds_line(wall, rounds), **fleet}
+    res, rounds, wall = _timed(resilience_legs, dev)
+    steps["resilience"] = {**_rounds_line(wall, rounds), **res}
+    reg, rounds, wall = _timed(registry_leg, dev)
+    steps["registry"] = {**_rounds_line(wall, rounds), **reg}
+    emit({"fleet_path": steps})
+    return {"devices": devices, "trace": trace, "steps": steps}
+
+
+def fleet_profile(dev, devices, trace) -> dict:
+    """Busy share of one drain of the fleet leg's trace on a fresh
+    Fleet."""
+    def drain():
+        fleet = Fleet(devices, device=dev)
+        for t in trace:
+            fleet.submit(*t)
+        fleet.drain()
+    return busy_share("fleet drain", drain)
 
 
 def main() -> int:
@@ -1831,10 +2187,20 @@ def main() -> int:
         "pe_execute_launches_by_shape": {
             f"{W}x{L}": n for (W, L), n in dse_shapes.items()}}})
     emit({"dse_profile": dse_profile(dev)})
+    fleet, fleet_launches, fleet_shapes, fleet_wall = counted_path(
+        fleet_path, dev)
+    emit({"fleet_path_counts": {
+        **_rounds_line(fleet_wall, fleet_launches),
+        "ms_per_round": fleet_wall / fleet_launches * 1e3,
+        "pe_execute_launches": fleet_launches,
+        "pe_execute_launches_by_shape": {
+            f"{W}x{L}": n for (W, L), n in fleet_shapes.items()}}})
+    emit({"fleet_profile": fleet_profile(dev, fleet["devices"],
+                                         fleet["trace"])})
     path_launches = {"simulator": launches, "serve": serve_launches,
-                     "dse": dse_launches}
+                     "dse": dse_launches, "fleet": fleet_launches}
     pe = pe_shapes_phase(dev, {"simulator": by_shape, "serve": serve_shapes,
-                               "dse": dse_shapes})
+                               "dse": dse_shapes, "fleet": fleet_shapes})
 
     lm_golden(dev)
     flash_launches, rglru_launches, _, ring_launches = lm_main_path(dev)
@@ -1884,6 +2250,7 @@ def main() -> int:
     check(launches > 0, "the simulator's path launched no pe_execute kernel")
     check(serve_launches > 0, "the serving path launched no pe_execute")
     check(dse_launches > 0, "the DSE path launched no pe_execute")
+    check(fleet_launches > 0, "the fleet path launched no pe_execute")
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(rglru_launches > 0, "the LM path launched no rglru_scan")
     emit({"ok": True, "device": {"platform": "gpu",

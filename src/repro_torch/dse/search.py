@@ -22,7 +22,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.dse.evaluate import EvaluatedPoint, Evaluator
 from repro_torch.dse.point import DesignSpec, design_point
-from repro_torch.ggpu.engine import MEMSYS, GGPUConfig
+from repro_torch.ggpu.engine import GGPUConfig
+from repro_torch.registry import MEMSYS
 
 Objective = Callable[[EvaluatedPoint], Tuple[float, ...]]
 
@@ -184,15 +185,15 @@ def sweep_memsys(bench: str = "xcorr",
     (CU count, memory system) point; returns ``{(n_cus, memsys): info}``
     with the simulator's cycles/hits/misses per point.
 
-    ``memsys`` defaults to every organization the engine has (sorted by
-    name, as the reference's registry lists them). ``sizes`` are the bench
+    ``memsys`` defaults to every organization on the ``MEMSYS`` registry
+    axis (sorted by name). ``sizes`` are the bench
     constructor's (scalar, gpu) input sizes — the default is a reduced
     xcorr so a sweep stays interactive; pass ``None`` for the paper's
     Table III sizes. ``device``: where it runs (``None``: the card).
     Extra keyword arguments become ``GGPUConfig`` fields (e.g.
     ``cache_lines=128``)."""
     if memsys is None:
-        memsys = tuple(sorted(MEMSYS))
+        memsys = tuple(MEMSYS.names())
     ev = Evaluator(benches=(bench,),
                    sizes=None if sizes is None else {bench: sizes},
                    device=device)

@@ -16,9 +16,9 @@ cycle-approximate simulator (counterpart of ``repro.ggpu.engine``).
 """
 from repro_torch.ggpu.engine.alu import branch_taken, exec_alu, select_alu
 from repro_torch.ggpu.engine.config import GGPUConfig, ScalarConfig
-from repro_torch.ggpu.engine.memsys import (MEMSYS, BankedPerCUCache,
-                                            CacheResult, SharedCache,
-                                            get_memsys)
+from repro_torch.ggpu.engine.memsys import (MEMSYS_REGISTRY,
+                                            BankedPerCUCache, CacheResult,
+                                            SharedCache, get_memsys)
 from repro_torch.ggpu.engine.stepper import (BlockPatch, KernelLaunchError,
                                              LaunchHandle, MachineState,
                                              XorBlockPatch, cohort_rows,
@@ -36,5 +36,6 @@ __all__ = [
     "run_kernel", "run_kernel_batch", "run_kernel_cohort",
     "run_kernel_async", "run_kernel_batch_async", "run_kernel_cohort_async",
     "exec_alu", "select_alu", "branch_taken",
-    "SharedCache", "BankedPerCUCache", "CacheResult", "MEMSYS", "get_memsys",
+    "SharedCache", "BankedPerCUCache", "CacheResult", "MEMSYS_REGISTRY",
+    "get_memsys",
 ]

@@ -3,8 +3,9 @@
 The same frozen fields and defaults as ``repro.ggpu.engine.config``, so a
 configuration converts field for field (``repro_torch.convert``):
 
-  * ``memsys``   — the cache organization by name (``"shared"`` |
-                   ``"banked"`` | ``"banked-iso"``, see
+  * ``memsys``   — the cache organization by name on the ``MEMSYS``
+                   registry axis (``"shared"`` | ``"banked"`` |
+                   ``"banked-iso"``, see
                    ``repro_torch.ggpu.engine.memsys``).
   * ``fuse``     — how many lockstep rounds the stepper enqueues between two
                    host-side termination checks. Result- and cycle-neutral:
@@ -32,7 +33,7 @@ class GGPUConfig:
     ports: int = 4
     freq_mhz: float = 500.0
     max_steps: int = 2_000_000
-    memsys: str = "shared"   # cache organization (engine.memsys map)
+    memsys: str = "shared"   # cache organization (MEMSYS registry axis)
     fuse: int = 4            # rounds between host-side termination checks
     pipeline_depth: int = 0  # planner-inserted stages: extra issue/branch CPI
 

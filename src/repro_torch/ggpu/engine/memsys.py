@@ -23,11 +23,14 @@ Two differences from the reference, both result-neutral:
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.registry import MEMSYS
 
 
 def scatter_last(dst, idx, vals):
@@ -178,17 +181,30 @@ class BankedPerCUCache:
         return CacheResult(new_tags, hit, miss, hit_service, fill_cycles)
 
 
-MEMSYS = {
-    "shared": SharedCache(),
-    "banked": BankedPerCUCache(iso_capacity=False),
-    "banked-iso": BankedPerCUCache(iso_capacity=True),
-}
+MEMSYS.register("shared", SharedCache())
+MEMSYS.register("banked", BankedPerCUCache(iso_capacity=False))
+MEMSYS.register("banked-iso", BankedPerCUCache(iso_capacity=True))
+
+
+class _MemsysMapping(Mapping):
+    """Read-only mapping view of the ``MEMSYS`` registry axis (the
+    reference's ``MEMSYS_REGISTRY``): iteration and membership reflect
+    every registered organization, drop-in plugins included."""
+
+    def __getitem__(self, name: str):
+        return MEMSYS.get(name)
+
+    def __iter__(self):
+        return iter(MEMSYS.names())
+
+    def __len__(self) -> int:
+        return len(MEMSYS)
+
+
+MEMSYS_REGISTRY: Mapping = _MemsysMapping()
 
 
 def get_memsys(name: str):
-    """The organization called ``name`` (KeyError naming the choices)."""
-    try:
-        return MEMSYS[name]
-    except KeyError:
-        raise KeyError(f"unknown memory system {name!r}; "
-                       f"choices: {sorted(MEMSYS)}") from None
+    """Resolve a memory-system name through the registry (its
+    ``UnknownPluginError`` is a ``KeyError`` naming the choices)."""
+    return MEMSYS.get(name)

@@ -23,10 +23,17 @@ plus each request's declared ``out_region`` slice of memory, or the full
 image when none was declared); ``run`` is the two in a row. Dispatch is
 not overlapped with the host in the port: ``submit`` returns after the
 chunk has retired on the device (``repro_torch.ggpu.engine.stepper``), so
-a pipelined drain gives the same results and no overlap. For the same
-reason the reference's ``timeout_s`` (a wall-clock budget ``collect``
-polls against) is not ported: no chunk can still be running at
-collection. It comes with real overlap or the serving ``Fleet``.
+a pipelined drain gives the same results and no overlap.
+
+``timeout_s`` is the wall-clock budget a dispatched chunk gets before
+``collect`` gives up with ``DeviceTimeout``. ``PendingChunk.t_dispatch``
+is stamped when ``submit`` returns, which in the port is after the chunk
+has retired; the reference stamps after its asynchronous dispatch
+returns. Either way the budget counts only time past the dispatch call,
+so an ordinary chunk is ready (``chunk_ready``: its CUDA event) by the
+time it is collected, and only a chunk that something holds back — a
+fault injector's straggler or stuck device (``repro_torch.faults``) — can
+run out of it.
 
 ``get_executor`` is a process-wide registry keyed by the simulation key
 *and the device*, so a CPU executor's memo never answers a card query;
@@ -40,6 +47,7 @@ so ``shards`` is 1.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch import _device
@@ -54,12 +62,12 @@ from repro_torch.serve.request import Request, Result
 
 
 class DeviceTimeout(KernelLaunchError):
-    """A dispatched chunk did not resolve in time — the stuck-device
-    failure mode. ``index`` is ``None``: the whole chunk is suspect, every
-    member is retried or quarantined by the scheduler. ``device_fault``
-    marks it as the *device's* failure (not the program's). No executor of
-    the port raises it yet (see module doc); the scheduler handles it for
-    executors that do."""
+    """A dispatched chunk did not resolve within the executor's
+    ``timeout_s`` — the stuck-device failure mode. ``index`` is ``None``:
+    the whole chunk is suspect, every member is retried or quarantined by
+    the scheduler. ``device_fault`` marks it as the *device's* failure (not
+    the program's), which is what a fleet counts toward eviction and
+    re-routes to survivors."""
 
     device_fault = True
 
@@ -107,12 +115,15 @@ def sim_key(cfg: GGPUConfig) -> GGPUConfig:
 
 @dataclasses.dataclass
 class PendingChunk:
-    """One dispatched chunk awaiting collection."""
+    """One dispatched chunk awaiting collection. ``t_dispatch`` is the
+    monotonic clock when ``submit`` returned — the reference point for
+    executor timeouts and fleet-level hedging."""
     handle: LaunchHandle
     kind: str
     reqs: List[Request]
     env: tuple
     traced: bool
+    t_dispatch: float = 0.0
 
 
 class Executor:
@@ -123,15 +134,21 @@ class Executor:
     ``share`` hands this executor another one's mutable state (envelope
     cache, stats, memo) — how the registry builds frequency-faithful views
     over one canonical executor per (simulation key, device). ``device``
-    is where chunks run (``None``: the card); ``mesh`` is not ported."""
+    is where chunks run (``None``: the card); ``mesh`` is not ported.
+    ``timeout_s`` bounds how long ``collect`` waits on a chunk that is not
+    ready (module doc)."""
 
     def __init__(self, cfg: GGPUConfig, *,
                  share: Optional["Executor"] = None,
-                 mesh=None, device=None):
+                 mesh=None, device=None,
+                 timeout_s: Optional[float] = None):
         self.cfg = cfg                    # reporting config (true freq)
         self.sim_cfg = sim_key(cfg)       # engine config
         self.shards = launch_shards(mesh)
         self.device = _device.resolve(device)
+        # wall-clock budget of a dispatched chunk before ``collect`` gives
+        # up with ``DeviceTimeout`` (None: wait forever, the default)
+        self.timeout_s = timeout_s
         if share is None:
             self.stats = ExecutorStats()
             self.memo: Dict[tuple, object] = {}  # e.g. the DSE cycle cache
@@ -211,14 +228,31 @@ class Executor:
                 reqs[0].prog, reqs[0].mem0, reqs[0].n_items, cfg,
                 out_region=regions[0] if regions else None,
                 patches=single, device=dev)
-        return PendingChunk(h, kind, reqs, env, traced)
+        return PendingChunk(h, kind, reqs, env, traced,
+                            t_dispatch=time.monotonic())
+
+    def chunk_ready(self, pending: PendingChunk) -> bool:
+        """Non-blocking: has the device finished this chunk? (The hook a
+        fault injector overrides to model stuck devices and stragglers.)"""
+        return pending.handle.ready()
 
     def collect(self, pending: PendingChunk) -> List[Result]:
         """Resolve a dispatched chunk into per-launch ``Result``s in the
         chunk's own order, rescaling ``time_us`` to this executor's true
         frequency. Raises ``KernelLaunchError`` (``index`` names the
         failing position) when a launch did not halt — counters move on
-        successful collections only."""
+        successful collections only. With ``timeout_s`` set, a chunk still
+        not ready ``timeout_s`` after its dispatch raises ``DeviceTimeout``
+        (``index=None``: the whole chunk is suspect)."""
+        if self.timeout_s is not None:
+            deadline = pending.t_dispatch + self.timeout_s
+            while not self.chunk_ready(pending):
+                now = time.monotonic()
+                if now >= deadline:
+                    raise DeviceTimeout(
+                        f"chunk of {len(pending.reqs)} launch(es) not "
+                        f"resolved within {self.timeout_s}s of dispatch")
+                time.sleep(min(1e-3, deadline - now))
         outs = pending.handle.results()
         if pending.traced:
             self.stats.trace_hits += 1

@@ -1,11 +1,12 @@
-"""Chunk-planning policies (PyTorch port of ``repro.serve.policies``).
+"""Chunk-planning policies — the ``SCHEDULERS`` registry axis built-ins
+(PyTorch port of ``repro.serve.policies``).
 
 A policy is a callable ``(requests, cfg, max_batch) -> List[Chunk]``
 (the contract of ``scheduler.plan_chunks``): it groups the ready set
 into cohort/batch/single dispatches and fixes their execution order.
-``Scheduler(policy="name")`` resolves the name here. The reference
-registers its policies on the ``SCHEDULERS`` registry axis; the port has
-no registry yet (ROADMAP.md, queue 1, item 8), so it keeps this map.
+``Scheduler(policy="name")`` resolves the name through the registry, so
+a new policy is one registered callable (or one drop-in file under
+``repro_torch/registry/plugins/``, as ``deadline-drop`` is).
 
   * ``cohort`` — the default continuous-batching plan
     (``plan_chunks``): same-kernel cohort folding, wavefront-bucketed
@@ -19,10 +20,14 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from repro_torch.ggpu.engine import GGPUConfig
+from repro_torch.registry import SCHEDULERS
 from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import Chunk, plan_chunks
 
+SCHEDULERS.register("cohort", plan_chunks)
 
+
+@SCHEDULERS.register("fifo")
 def plan_fifo(requests: Sequence[Request], cfg: GGPUConfig,
               max_batch: int = 64) -> List[Chunk]:
     """Strict-FIFO plan: walk the submission order, folding only
@@ -53,14 +58,3 @@ def plan_fifo(requests: Sequence[Request], cfg: GGPUConfig,
     close_run()
     return chunks
 
-
-POLICIES = {"cohort": plan_chunks, "fifo": plan_fifo}
-
-
-def get_policy(name: str):
-    """The plan called ``name`` (KeyError naming the choices)."""
-    try:
-        return POLICIES[name]
-    except KeyError:
-        raise KeyError(f"unknown scheduling policy {name!r}; "
-                       f"choices: {sorted(POLICIES)}") from None

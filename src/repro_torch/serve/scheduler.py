@@ -29,6 +29,10 @@ the pipeline depth. Results are bit-exact with the serial path at any
 depth. In the port a dispatch returns only after its chunk has retired
 on the device (``repro_torch.ggpu.engine.stepper``), so the pipelined
 drain does the serial drain's work and does not overlap host and device.
+``Fleet`` (``repro_torch.serve.fleet``) uses the split API directly, and
+its self-healing drain the incremental one (``collect_ready``,
+``collect_step``, ``inflight``): there a chunk is "not ready" only while
+a fault injector holds it.
 
 The scheduler is **dependency-aware** (DESIGN.md §Kernel graphs): a
 request may declare ``deps`` edges naming producer tickets whose final
@@ -50,7 +54,7 @@ producer); their results are never returned.
 
 ``LaunchQueue`` remains the pre-package interface with its original
 strict semantics (whole-flush raise + restore on failure); see the class
-docstring. New code should use ``Scheduler`` directly.
+docstring. New code should use ``Scheduler``/``Fleet`` directly.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.ggpu.engine import BlockPatch, GGPUConfig, KernelLaunchError
+from repro_torch.registry import SCHEDULERS
 from repro_torch.serve.executors import Executor, PendingChunk
 from repro_torch.serve.request import Dep, Request, Result, result_checksum
 
@@ -187,10 +192,10 @@ class Scheduler:
     evaluator shares executors and their memo). ``device`` sets the
     private executor's device (``None``: the card); ``mesh`` is not
     ported. Chunks are planned at ``max_batch * executor.shards``
-    launches. ``policy`` selects the chunk-planning strategy by name
-    (``"cohort"``, the legacy plan, or ``"fifo"``: see
-    ``repro_torch.serve.policies``) or as a direct callable with the
-    ``plan_chunks`` contract."""
+    launches. ``policy`` selects the chunk-planning strategy by registered
+    name (the ``SCHEDULERS`` registry axis; ``"cohort"`` is the legacy
+    plan, see ``repro_torch.serve.policies``) or as a direct callable with
+    the ``plan_chunks`` contract."""
 
     def __init__(self, cfg: Optional[GGPUConfig] = None, *,
                  executor: Optional[Executor] = None, max_batch: int = 64,
@@ -209,12 +214,12 @@ class Scheduler:
         self.executor = executor if executor is not None \
             else Executor(cfg, mesh=mesh, device=device)
         self.cfg = self.executor.cfg
-        # chunk-planning policy: a name ("cohort" is the legacy plan) or a
-        # callable with the ``plan_chunks`` contract
-        from repro_torch.serve.policies import get_policy
+        # chunk-planning policy: a registered name (SCHEDULERS axis —
+        # "cohort" is the legacy plan) or a callable with the
+        # ``plan_chunks`` contract
         self.policy = policy if isinstance(policy, str) else \
             getattr(policy, "__name__", str(policy))
-        self._plan = get_policy(policy) if isinstance(policy, str) \
+        self._plan = SCHEDULERS.get(policy) if isinstance(policy, str) \
             else policy
         self.max_batch = max_batch
         self.max_pending = max_pending
@@ -470,6 +475,66 @@ class Scheduler:
         try:
             while self._inflight:
                 self._collect_oldest()
+        except BaseException:
+            self._abandon_inflight()
+            raise
+        out, self._completed = self._completed, []
+        out.sort(key=lambda r: r.info["ticket"])
+        return out
+
+    # -- incremental collection (the fleet resilience surface) --------------
+
+    @property
+    def inflight(self) -> Tuple[PendingChunk, ...]:
+        """The dispatched-but-uncollected chunks, oldest first — the
+        read-only view a fleet's hedging policy scans for stragglers."""
+        return tuple(self._inflight)
+
+    def oldest_dispatch(self) -> float:
+        """Dispatch wall clock of the oldest in-flight chunk (``inf``
+        when nothing is in flight)."""
+        return self._inflight[0].t_dispatch if self._inflight \
+            else math.inf
+
+    def _resolvable(self, pending: PendingChunk) -> bool:
+        """Would collecting this chunk return without waiting on the
+        device? True when the device has finished it, or when it is
+        already past the executor timeout (collecting then raises
+        ``DeviceTimeout`` immediately — also no wait)."""
+        if self.executor.chunk_ready(pending):
+            return True
+        t = getattr(self.executor, "timeout_s", None)
+        return t is not None \
+            and time.monotonic() - pending.t_dispatch >= t
+
+    def collect_ready(self) -> List[Result]:
+        """Resolve only the in-flight chunks that are already finished
+        (or past the executor timeout), never blocking on the rest —
+        the readiness-ordered collection a resilient fleet drains with,
+        so one straggling device never serializes the others'
+        collections. Returns the results completed by this call, ticket
+        order; unfinished chunks keep their relative (dispatch) order."""
+        try:
+            for _ in range(len(self._inflight)):
+                if self._resolvable(self._inflight[0]):
+                    self._collect_oldest()
+                else:
+                    self._inflight.rotate(-1)
+        except BaseException:
+            self._abandon_inflight()
+            raise
+        out, self._completed = self._completed, []
+        out.sort(key=lambda r: r.info["ticket"])
+        return out
+
+    def collect_step(self) -> List[Result]:
+        """Blocking-collect the single oldest in-flight chunk — the
+        guaranteed-progress move a resilient fleet makes when nothing is
+        resolvable anywhere. Returns the results it completed."""
+        if not self._inflight:
+            return []
+        try:
+            self._collect_oldest()
         except BaseException:
             self._abandon_inflight()
             raise

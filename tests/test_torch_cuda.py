@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: ``pe_execute`` against its plain version
 ``select_alu`` bit for bit, and the simulator's card path (sync and async
-entry points, patches, a Scheduler drain, a DSE Evaluator) against its CPU
-path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
+entry points, patches, a Scheduler drain, a DSE Evaluator, a Fleet and a
+fault scenario) against its CPU path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
 ``rglru_scan_ref`` within the tolerances of ``tests/test_kernels.py``, and
 the LM's kernel path against its plain path. Needs an NVIDIA card
 (sm_90a) and nvcc; skipped without a card.
@@ -194,6 +194,51 @@ def test_scheduler_and_evaluator_on_card(cuda):
     for (gm, gi), (wm, wi) in zip(card, cpu):
         np.testing.assert_array_equal(gm, wm)
         assert gi == wi
+
+
+def test_fleet_and_seu_scenario_on_card(cuda):
+    """A Fleet drain of a mixed trace over two configs, and the seu fault
+    scenario's audited trace, on the card equal the same on the CPU:
+    results, reports and the fault decision log."""
+    from repro_torch.registry import FAULTS
+    from repro_torch.serve import Fleet, Request, result_checksum
+    wide = programs.build("copy", 16, 1024)
+    narrow = programs.build("reduction", 64, 256)
+    rng = np.random.default_rng(1)
+    trace = [(x.gpu_prog, rng.integers(-100, 100, x.gpu_mem.shape[0])
+              .astype(np.int32), x.gpu_items) for x in (wide, narrow)]
+    v = programs.build("vec_mul", 16, 128)
+    mems = [rng.integers(-100, 100, v.gpu_mem.shape[0]).astype(np.int32)
+            for _ in range(12)]
+    audits = [result_checksum(run_kernel(v.gpu_prog, m, v.gpu_items,
+                                         GGPUConfig(n_cus=2),
+                                         device="cpu")[0]) for m in mems]
+    got = {}
+    for dev in (cuda, "cpu"):
+        fleet = Fleet([("small", GGPUConfig(n_cus=1, freq_mhz=667.0)),
+                       ("wide", GGPUConfig(n_cus=8))], device=dev)
+        for t in trace:
+            fleet.submit(*t)
+        out = fleet.drain()
+        sc = FAULTS.get("seu")(seed=0, rate=0.5)
+        chaos = Fleet([("dev0", GGPUConfig(n_cus=1)),
+                       ("dev1", GGPUConfig(n_cus=2))], max_batch=8,
+                      device=dev, **sc.fleet_kwargs())
+        for m, a in zip(mems, audits):
+            chaos.submit_request(Request(v.gpu_prog, m, v.gpu_items,
+                                         audit=a))
+        served = chaos.drain()
+        got[str(dev)] = (out, fleet.report(), served, chaos.report(),
+                         sc.decision_log())
+    card, cpu = got["cuda"], got["cpu"]
+    assert card[1] == cpu[1] and card[3] == cpu[3]
+    assert card[4] == cpu[4] and len(card[4]) > 0
+    for i in (0, 2):
+        assert len(card[i]) == len(cpu[i]) > 0
+        for g, w in zip(card[i], cpu[i]):
+            np.testing.assert_array_equal(g.mem, w.mem)
+            assert {k: g.info[k] for k in w.info if k != "settled_s"} == \
+                {k: w.info[k] for k in w.info if k != "settled_s"}
 
 
 # ---------------------------------------------------------------------------

@@ -522,6 +522,73 @@ def test_stuck_chunk_times_out_and_is_retried():
     assert s2.quarantined[0].error.index is None
 
 
+def test_executor_timeout_fires_on_a_chunk_that_is_not_ready():
+    """The executor's own ``timeout_s``: a chunk that stays not ready
+    (``chunk_ready``) ``timeout_s`` past its dispatch raises DeviceTimeout
+    (index None) at collection, and the scheduler's retry serves it; a
+    ready chunk collects at once under the same budget."""
+    import time
+    b = SMALL["copy"]()
+    ex = Executor(CFG, device=CPU, timeout_s=0.05)
+    assert ex.timeout_s == 0.05
+    held = []
+    ready = ex.chunk_ready
+
+    def chunk_ready(pending):
+        if not held:
+            held.append(id(pending))
+        return id(pending) != held[0] and ready(pending)
+
+    ex.chunk_ready = chunk_ready
+    pending = ex.submit("single", [Request(b.gpu_prog, b.gpu_mem,
+                                           b.gpu_items)])
+    assert pending.t_dispatch <= time.monotonic()
+    with pytest.raises(DeviceTimeout) as exc:
+        ex.collect(pending)
+    assert exc.value.index is None
+    assert time.monotonic() - pending.t_dispatch >= 0.05
+    t0 = time.monotonic()
+    (res,) = ex.collect(ex.submit("single", [Request(b.gpu_prog, b.gpu_mem,
+                                                     b.gpu_items)]))
+    assert time.monotonic() - t0 < 0.05
+    check_launch((res.mem, res.info), jax_run_kernel(
+        b.gpu_prog, b.gpu_mem, b.gpu_items, JCFG))
+    held.clear()
+    s = Scheduler(executor=ex, retry=RetryPolicy(max_retries=1))
+    req = Request(b.gpu_prog, variant_mem(b, 3), b.gpu_items)
+    t = s.submit_request(req)
+    (res,) = s.drain()
+    assert res.info["ticket"] == t and req.attempts == 1
+    assert s.inflight == () and s.oldest_dispatch() == float("inf")
+    check_launch((res.mem, res.info), jax_run_kernel(
+        b.gpu_prog, variant_mem(b, 3), b.gpu_items, JCFG))
+
+
+def test_collect_ready_skips_chunks_that_are_not_ready():
+    """The fleet's resilience surface: ``collect_ready`` resolves only the
+    ready chunks and keeps the rest in flight in dispatch order;
+    ``collect_step`` then resolves the oldest one, waiting on it."""
+    b, fir = SMALL["copy"](), SMALL["fir"]()
+    s = Scheduler(CFG, device=CPU)
+    held = set()
+    ready = s.executor.chunk_ready
+    s.executor.chunk_ready = lambda p: id(p) not in held and ready(p)
+    t0 = s.submit(b.gpu_prog, b.gpu_mem, b.gpu_items)
+    t1 = s.submit(fir.gpu_prog, fir.gpu_mem, fir.gpu_items)
+    assert s.dispatch() == 2 and len(s.inflight) == 2
+    held.add(id(s.inflight[0]))
+    oldest = s.oldest_dispatch()
+    assert oldest == s.inflight[0].t_dispatch <= s.inflight[1].t_dispatch
+    assert [r.info["ticket"] for r in s.collect_ready()] == [t1]
+    assert [p.reqs[0].ticket for p in s.inflight] == [t0]
+    assert s.collect_ready() == [] and s.inflight_chunks == 1
+    (res,) = s.collect_step()
+    assert res.info["ticket"] == t0 and s.inflight == ()
+    assert s.collect_step() == []
+    check_launch((res.mem, res.info), jax_run_kernel(
+        b.gpu_prog, b.gpu_mem, b.gpu_items, JCFG))
+
+
 def test_policy_drop_chunks_quarantine_with_deadline_exceeded():
     """A policy may plan members out as a "drop" chunk: they are
     quarantined with DeadlineExceeded, the rest are served."""
