@@ -44,8 +44,9 @@ Phases, each fatal on any mismatch:
      batch of slice / nothing / full image) against the golden file, and
      a BlockPatch and an XorBlockPatch chain against the same chain
      staged through the host (the producers' memory unchanged); one
-     Scheduler drain (max_inflight 8) of every 8-CU shared bench twice,
-     the golden image against the golden file and a seeded variant,
+     Scheduler drain (max_inflight 8) of every 8-CU shared bench but
+     xcorr twice, the golden image against the golden file and a seeded
+     variant,
      checksum-audited, against the numpy reference and the golden
      file's stats (the JAX package's run of the same variant); the serve
      benchmark's throughput traffic (vec_mul(32, 512) on 2 CUs, 8 bursts of 16
@@ -73,21 +74,35 @@ Phases, each fatal on any mismatch:
      benchmarks/baselines/BENCH_resilience.json and the benchmark's
      invariants (hedged p99 below unhedged among them); the registry's
      selfcheck and smoke (every bench, memsys, policy, router, traffic
-     pattern and fault scenario) and one cross-product cell under SEU
-     injection, with no problem;
-     for phases 4-7 pe_execute's calls are counted by (W, L) per path,
+     pattern and fault scenario), with no problem;
+  8. compiler and kernel graphs: the compiler benchmark's fast sections
+     through repro_torch.compiler on 2 CUs — the eight compiled benches
+     and their hand twins through run_kernel (cycles, bit-exactness,
+     program length), the autotune of copy and vec_mul over SMOKE_SPACE
+     (every candidate verified), the co-design over 1 and 2 CUs at 500
+     and 667 MHz (schedules, population, the joint frontier's pairs) and
+     a DSE over compiled workloads (dsl_vec_mul, dsl_reduction,
+     user_segred) — every exact field against
+     benchmarks/baselines/BENCH_compiler.json; the serve benchmark's
+     graph section (map -> segmented reduce -> scale, 8 instances),
+     pipelined, host-staged and host-folded, every output against
+     Program.reference, stages and the pipelined dispatches against
+     BENCH_serve.json's "graph" and the speedup at least 1.5; one graph
+     instance through a Fleet of the compiled DSE frontier's two ends,
+     its stages on one device;
+     for phases 4-8 pe_execute's calls are counted by (W, L) per path,
      each path's wall time, rounds, µs per round and the device's busy
      share (torch.profiler over a representative piece) reported, and
-     at every (W, L) the four paths launched, pe_execute held bit for
+     at every (W, L) the five paths launched, pe_execute held bit for
      bit against select_alu on random inputs (with each opcode set the
      paths gave it there) and then timed;
-  8. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
+  9. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
      numpy-seeded weights, through Engine.generate and the kernels: six
      prompts (3072 to 37 tokens) in two waves of 4 slots, 16 greedy
      tokens; prefill logits and tokens against
      src/repro_torch/models/golden_lm.json, which the JAX package computes
      on the CPU;
-  9. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
+  10. LM main path: the full 26-layer recurrentgemma-2b (bf16 compute, f32
      weights) on the same traffic through the kernels, timed with CUDA
      events and no copy of the logits (flash_attention runs 8 times per
      prefill wave, all on its tensor-core route, rglru_scan 18 times, all
@@ -109,6 +124,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -121,6 +137,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import compiler  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import init_model  # noqa: E402
 from repro_torch.ggpu import isa, programs  # noqa: E402
@@ -143,9 +160,11 @@ from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.registry import FAULTS  # noqa: E402
 from repro_torch.registry import smoke as registry_smoke  # noqa: E402
 from repro_torch.serve import (Dep, Fleet, FleetResilience,  # noqa: E402
-                               Request, Scheduler, pinned_makespan,
-                               poisson_arrivals, replay, result_checksum,
-                               sim_key)
+                               Request, Scheduler, extract_outputs,
+                               pinned_makespan, poisson_arrivals, replay,
+                               result_checksum, run_chains_host_staged,
+                               run_program, run_programs_host_staged,
+                               sim_key, submit_programs)
 from repro_torch.serve.llm import Engine, EngineConfig  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "ggpu" / "golden_runs.json"
@@ -215,7 +234,15 @@ REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
            "(rglru, rglru, local) unit) at f32 compute, so that the JAX "
            "package can compute the golden file on a CPU; full width",
            "LM main path: the full 26-layer model is held against its own "
-           "plain path on the card, not against the JAX package"]
+           "plain path on the card, not against the JAX package",
+           "serving drain: the 8-CU xcorr cohort (golden image and seeded "
+           "variant, about 41k eager lockstep rounds) is left out so that "
+           "the compiler phase fits the time limit; the main path still "
+           "runs the golden image through the async entry point, and the "
+           "drain keeps the other seven benches",
+           "registry: the cross-product cell (shared, cohort, "
+           "earliest-finish, seu; about 6.4k rounds) is left out on the "
+           "card; tests/test_torch_registry.py runs it on the CPU path"]
 
 # The LM serving path: RecurrentGemma-2B, numpy-seeded weights, six
 # prompts of seeded token ids in two waves of 4 slots (the first prefills
@@ -1392,6 +1419,10 @@ ASYNC_BENCHES = ("mat_mul", "copy", "vec_mul", "fir", "div_int", "reduction")
 SERVE_BENCH, SERVE_SIZES, SERVE_CUS = "vec_mul", (32, 512), 2
 SERVE_BURSTS, SERVE_BURST, SERVE_MAX_BATCH, SERVE_SEED = 8, 16, 2, 0
 SERVE_REPS = 3          # passes of the traffic at each depth, in turns
+# the drain's benches: xcorr (41k rounds of a cohort of 2 at Table III
+# size) is cut (REDUCED)
+DRAIN_CUT = ("xcorr",)
+DRAIN_BENCHES = tuple(n for n in programs.LEGACY_ORDER if n not in DRAIN_CUT)
 POISON_MAX_STEPS = 50
 
 
@@ -1520,15 +1551,15 @@ def patch_chain(benches, dev) -> dict:
 
 
 def serve_drain(benches, golden, dev):
-    """Every 8-CU shared bench twice, its golden image and a seeded
-    variant, through one Scheduler drain with max_inflight 8. The
+    """Every 8-CU shared bench but DRAIN_CUT twice, its golden image and a
+    seeded variant, through one Scheduler drain with max_inflight 8. The
     originals download their full image, held against the golden file;
     the variants their output slice, audited against the checksum of the
     bench's numpy reference and held against it and against the golden
     file's stats (the JAX reference's run of the same variant)."""
     sched = Scheduler(GGPUConfig(n_cus=8), max_inflight=8, device=dev)
     expected = {}
-    for name in programs.LEGACY_ORDER:
+    for name in DRAIN_BENCHES:
         key = f"8cu/shared/{name}"
         prog, mem0, n, out, _ = launch(MAIN_RUNS_BY_KEY[key], benches)
         sched.submit(prog, mem0, n, tag=key)
@@ -1539,7 +1570,7 @@ def serve_drain(benches, golden, dev):
                                      audit=result_checksum(vexp)))
         expected[run.key] = vexp
     results = sched.drain()
-    check(not sched.quarantined and len(results) == 16,
+    check(not sched.quarantined and len(results) == 2 * len(DRAIN_BENCHES),
           f"serve drain: {len(results)} results, quarantined "
           f"{ {t: str(q.error) for t, q in sched.quarantined.items()} }")
     for res in results:
@@ -1664,7 +1695,7 @@ def serve_path(benches, golden, dev) -> dict:
     steps["async_parity"] = _rounds_line(wall, rounds)
     stats, rounds, wall = _timed(serve_drain, benches, golden, dev)
     steps["drain"] = {**_rounds_line(wall, rounds), **stats,
-                      "launches_per_s": 16 / wall}
+                      "launches_per_s": 2 * len(DRAIN_BENCHES) / wall}
     b = programs.build(SERVE_BENCH, *SERVE_SIZES)
     (rows, traffic_out), rounds, wall = _timed(serving_traffic, b, dev)
     steps["traffic"] = rows
@@ -1699,8 +1730,8 @@ def busy_share(name, fn) -> dict:
 def serve_profile(benches, dev) -> dict:
     """Busy share of the serving phase's two kinds of work: one burst of
     the throughput traffic (8 cohorts of 2 on 2 CUs), and the first 100
-    rounds of the drain's largest chunk (xcorr, a cohort of 2 on 8 CUs;
-    stopped by max_steps and never resolved)."""
+    rounds of the drain's largest chunk (parallel_sel, a cohort of 2 on 8
+    CUs; stopped by max_steps and never resolved)."""
     b = programs.build(SERVE_BENCH, *SERVE_SIZES)
     burst = serve_traffic(b)[0]
 
@@ -1711,14 +1742,14 @@ def serve_profile(benches, dev) -> dict:
         for mem in burst:
             sched.submit(b.gpu_prog, mem, b.gpu_items)
         sched.drain()
-    x = benches["xcorr"]
+    x = benches["parallel_sel"]
     cfg = GGPUConfig(n_cus=8, max_steps=100)
-    xcorr_rounds = lambda: run_kernel_cohort_async(  # noqa: E731
-        x.gpu_prog, [x.gpu_mem, launch(VARIANTS["xcorr"], benches)[1]],
+    cohort_rounds = lambda: run_kernel_cohort_async(  # noqa: E731
+        x.gpu_prog, [x.gpu_mem, launch(VARIANTS["parallel_sel"], benches)[1]],
         x.gpu_items, cfg, device=dev)
     return {"traffic_burst": busy_share("traffic burst", one_burst),
-            "drain_xcorr_cohort": busy_share("xcorr cohort of 2, 100 rounds",
-                                             xcorr_rounds)}
+            "drain_parallel_sel_cohort": busy_share(
+                "parallel_sel cohort of 2, 100 rounds", cohort_rounds)}
 
 
 # -- phase 6: the DSE sweep on the card --------------------------------------
@@ -1810,7 +1841,6 @@ RES_EXACT = {
     "straggler": ("n",)}
 # resilience_bench.invariant_problems' limits
 MIN_SERVED_CORRECT, MIN_GOODPUT_RATIO = 0.999, 0.2
-CELL = ("shared", "cohort", "earliest-finish", "seu")
 
 
 def fleet_leg(dev) -> tuple:
@@ -2066,14 +2096,12 @@ def resilience_legs(dev) -> dict:
 
 
 def registry_leg(dev) -> dict:
-    """selfcheck and smoke_all on the card with no problem, then one
-    cross-product cell under SEU injection with nothing lost."""
+    """selfcheck and smoke_all on the card with no problem (the
+    cross-product cell is cut: REDUCED)."""
     out = {}
     for name, fn in (("selfcheck", registry_smoke.selfcheck),
                      ("smoke_all", lambda emit: registry_smoke.smoke_all(
-                         emit, device=dev)),
-                     ("cell", lambda emit: registry_smoke.run_cell(
-                         *CELL[:3], emit, fault=CELL[3], device=dev))):
+                         emit, device=dev))):
         lines = []
         t0, r0 = time.perf_counter(), pe_simd.LAUNCHES
         bad = fn(lines.append)
@@ -2081,7 +2109,6 @@ def registry_leg(dev) -> dict:
         out[name] = {**_rounds_line(time.perf_counter() - t0,
                                     pe_simd.LAUNCHES - r0),
                      "lines": lines}
-    out["cell"]["cell"] = list(CELL)
     return out
 
 
@@ -2109,6 +2136,270 @@ def fleet_profile(dev, devices, trace) -> dict:
             fleet.submit(*t)
         fleet.drain()
     return busy_share("fleet drain", drain)
+
+
+# -- phase 8: the compiler, its autotuner and kernel graphs on the card -----
+
+BENCH_COMPILER = ROOT / "benchmarks" / "baselines" / "BENCH_compiler.json"
+# The compiler benchmark at its --fast sizes on GGPUConfig(n_cus=2): suite
+# parity, the autotune of copy and vec_mul over SMOKE_SPACE, the co-design
+# over 1 and 2 CUs at 500 and 667 MHz, and a DSE over compiled workloads
+# (two suite kernels and user_segred (512, 32), a bench with seed 11).
+COMPILER_SIZES = {
+    "copy": (64, 512), "vec_mul": (64, 512), "div_int": (64, 512),
+    "reduction": (64, 512, 8), "fir": (64, 512), "mat_mul": (8, 16),
+    "xcorr": (32, 128), "parallel_sel": (32, 128)}
+COMPILER_CUS, COMPILER_TUNE = 2, ("copy", "vec_mul")
+COMPILER_SPECS = {"cus": (1, 2), "freq_targets": (500.0, 667.0)}
+COMPILER_SAMPLE, USER_SEGRED, USER_SEED = ("vec_mul", "reduction"), \
+    (512, 32), 11
+SUITE_EXACT = ("cycles_hand", "cycles_dsl", "cycle_ratio", "bit_exact",
+               "prog_len")
+TUNE_EXACT = ("best_schedule", "default_cycles", "tuned_cycles",
+              "tuned_vs_default", "n_candidates", "cycles_hand",
+              "tuned_vs_hand", "verified")
+# The serve benchmark's graph section (fast): map -> segmented reduce ->
+# scale, n 256, seg 64, 8 instances from rng 7, 2 CUs, three passes of
+# each way; its speedup limit (benchmarks/serve_bench.py
+# GRAPH_MIN_SPEEDUP).
+GRAPH_N, GRAPH_SEG, GRAPH_INST, GRAPH_SEED, GRAPH_REPS = 256, 64, 8, 7, 3
+GRAPH_MIN_SPEEDUP = 1.5
+
+
+def compiler_suite(dev, base) -> tuple:
+    """The eight compiled benches and their hand twins through run_kernel
+    on the card: cycles, bit-exactness and program length against the
+    baseline's suite_parity, each output against the numpy reference.
+    Returns (rows, the compiled benches)."""
+    hands = compiler.hand_benches(COMPILER_SIZES)
+    compiled = compiler.dsl_benches(COMPILER_SIZES, hands=hands)
+    cfg = GGPUConfig(n_cus=COMPILER_CUS)
+    rows = {}
+    for name in sorted(compiled):
+        base_name = name[len("dsl_"):]
+        hand, d = hands[base_name], compiled[name]
+        mh, ih = run_kernel(hand.gpu_prog, hand.gpu_mem, hand.gpu_items,
+                            cfg, device=dev)
+        md, idd = run_kernel(d.gpu_prog, d.gpu_mem, d.gpu_items, cfg,
+                             device=dev)
+        want = hand.ref(hand.gpu_mem, hand.gpu_n)
+        check(np.array_equal(md[d.gpu_out], want),
+              f"compiled {base_name} != the numpy reference")
+        exact = bool(np.array_equal(mh[hand.gpu_out], md[d.gpu_out]))
+        rows[base_name] = {
+            "cycles_hand": ih["cycles"], "cycles_dsl": idd["cycles"],
+            "cycle_ratio": round(idd["cycles"] / ih["cycles"], 3),
+            "bit_exact": exact, "prog_len": int(d.gpu_prog.shape[0])}
+    bad = {f"{n}.{k}": (rows[n][k], row[k]) for n, row in base.items()
+           for k in SUITE_EXACT if rows.get(n, {}).get(k) != row[k]}
+    check(sorted(rows) == sorted(base) and not bad,
+          f"compiler suite_parity != {BENCH_COMPILER.name}: {bad}")
+    return rows, compiled
+
+
+def compiler_autotune(dev, base) -> dict:
+    """autotune_suite of copy and vec_mul over SMOKE_SPACE on the card,
+    every candidate verified (check=True) against the default kernel's
+    oracle: picks, cycles and candidate rows against the baseline."""
+    cfg = GGPUConfig(n_cus=COMPILER_CUS)
+    results = compiler.autotune_suite(COMPILER_TUNE, cfg,
+                                      sizes=COMPILER_SIZES,
+                                      space=compiler.SMOKE_SPACE,
+                                      device=dev)
+    hands = compiler.hand_benches(COMPILER_SIZES)
+    out = {}
+    for name, r in results.items():
+        h = hands[name]
+        _, ih = run_kernel(h.gpu_prog, h.gpu_mem, h.gpu_items, cfg,
+                           device=dev)
+        row = r.report()
+        row.update(verified=all(c.verified for c in r.candidates),
+                   cycles_hand=int(ih["cycles"]),
+                   tuned_vs_hand=round(r.best_cycles / ih["cycles"], 4))
+        want = base["benches"][name]
+        bad = {k: (row[k], want[k]) for k in TUNE_EXACT
+               if row[k] != want[k]}
+        rows = [{k: c[k] for k in ("schedule", "cycles", "prog_len",
+                                   "verified", "best")}
+                for c in row["candidates"]]
+        check(not bad and rows == [{k: c[k] for k in rows[0]}
+                                   for c in want["candidates"]],
+              f"compiler autotune {name} != {BENCH_COMPILER.name}: {bad}")
+        out[name] = {k: row[k] for k in TUNE_EXACT}
+    return out
+
+
+def compiler_codesign(dev, base) -> dict:
+    """codesign of copy and vec_mul over SMOKE_SPACE x the 4 specs: the
+    schedules, the population and the joint frontier's (label,
+    schedule) pairs with their times and areas against the baseline."""
+    hands = compiler.hand_benches(COMPILER_SIZES)
+    defs = {n: compiler.kernel_def(n, *compiler.def_args(n, hands[n]))
+            for n in COMPILER_TUNE}
+    res = compiler.codesign(defs, dse.enumerate_specs(**COMPILER_SPECS),
+                            space=compiler.SMOKE_SPACE, device=dev)
+    frontier = sorted(({"label": jp.label(), "schedule": jp.variant,
+                        "time_us": round(jp.point.time_us, 3),
+                        "area_mm2": round(jp.point.area_mm2, 2)}
+                       for jp in res.frontier), key=lambda r: r["label"])
+    got = {"workloads": sorted(defs), "schedules": sorted(res.results),
+           "n_points": sum(len(r.points) for r in res.results.values()),
+           "frontier": frontier}
+    bad = {k: (v, base[k]) for k, v in got.items() if v != base[k]}
+    check(not bad, f"compiler codesign != {BENCH_COMPILER.name}: {bad}")
+    return got
+
+
+def compiler_dse(dev, compiled, base) -> tuple:
+    """dse.search over compiled workloads (check=True: each against its
+    own reference) on the card: the nested artifact's exact fields
+    against the baseline's. Returns (summary, the search result)."""
+    workloads = {n: b for n, b in compiled.items()
+                 if n[len("dsl_"):] in COMPILER_SAMPLE}
+    user = compiler.compile_kernel(lambda a, b: ((a - b) * a).seg_sum(
+        USER_SEGRED[1]), dict(a=USER_SEGRED[0], b=USER_SEGRED[0]),
+        name="user_segred")
+    workloads["dsl_user_segred"] = user.as_bench(seed=USER_SEED)
+    ev = dse.Evaluator(benches=(), workloads=workloads, check=True,
+                       device=dev)
+    res = dse.search(specs=dse.enumerate_specs(**COMPILER_SPECS),
+                     evaluator=ev)
+    ref = min(res.frontier, key=lambda p: p.time_us)
+    art = dse.dse_artifact(ref, res)
+    art["workloads"] = sorted(workloads)
+    bad = dse_artifact_mismatches(art, base)
+    if art["workloads"] != base["workloads"]:
+        bad.append(f"workloads {art['workloads']} != {base['workloads']}")
+    check(not bad, f"compiler dse != {BENCH_COMPILER.name}: {bad}")
+    return {"cycles": {n: row["cycles"] for n, row in art["benches"].items()},
+            "frontier": art["frontier"],
+            "analytic_frontier": art["analytic_frontier"]}, res
+
+
+def _graph_program():
+    return compiler.compile_graph(
+        lambda a, b: (a * b).seg_sum(GRAPH_SEG) * 3 + 1,
+        {"a": GRAPH_N, "b": GRAPH_N}, name="map_reduce_scale")
+
+
+def compiler_graph(dev, base) -> dict:
+    """The serve benchmark's graph section (fast) on the card: pipelined
+    (stage-major, device-resident), host-staged per chain and host-folded,
+    best of three passes each after a warm pass; every output against
+    Program.reference, bit_exact, stages and the pipelined dispatches
+    against the baseline, the speedup over the host-staged way at least
+    GRAPH_MIN_SPEEDUP."""
+    program = _graph_program()
+    rng = np.random.default_rng(GRAPH_SEED)
+
+    def instances():
+        return [{"a": rng.integers(-100, 100, GRAPH_N).astype(np.int32),
+                 "b": rng.integers(-100, 100, GRAPH_N).astype(np.int32)}
+                for _ in range(GRAPH_INST)]
+    cfg = GGPUConfig(n_cus=COMPILER_CUS)
+    pipe, staged, folded = (Scheduler(cfg, max_batch=GRAPH_INST,
+                                      max_inflight=8, device=dev)
+                            for _ in range(3))
+    submit_programs(pipe, program, instances())
+    pipe.drain()
+    run_chains_host_staged(staged, program, instances())
+    run_programs_host_staged(folded, program, instances())
+    best = {"pipelined": math.inf, "host_staged": math.inf,
+            "host_folded": math.inf}
+    dispatches = 0
+    for _ in range(GRAPH_REPS):
+        ins = instances()
+        d0 = pipe.executor.stats.dispatches
+        t0 = time.perf_counter()
+        handles = submit_programs(pipe, program, ins)
+        outs = extract_outputs(pipe.drain(), handles)
+        best["pipelined"] = min(best["pipelined"], time.perf_counter() - t0)
+        dispatches = pipe.executor.stats.dispatches - d0
+        t0 = time.perf_counter()
+        staged_outs = run_chains_host_staged(staged, program, ins)
+        best["host_staged"] = min(best["host_staged"],
+                                  time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        folded_outs = run_programs_host_staged(folded, program, ins)
+        best["host_folded"] = min(best["host_folded"],
+                                  time.perf_counter() - t0)
+        for o, s_, f, i in zip(outs, staged_outs, folded_outs, ins):
+            ref = program.reference(i)
+            check(o is not None and np.array_equal(o, ref)
+                  and np.array_equal(s_, ref) and np.array_equal(f, ref),
+                  "graph: an output != Program.reference")
+    row = {"stages": [ck.name for ck in program.stages], "bit_exact": True,
+           "instances": GRAPH_INST, "launches": 3 * GRAPH_INST,
+           **{way: {"wall_s": t, "chains_per_sec": GRAPH_INST / t}
+              for way, t in best.items()},
+           "speedup": best["host_staged"] / best["pipelined"],
+           "folded_speedup": best["host_folded"] / best["pipelined"]}
+    row["pipelined"]["dispatches"] = dispatches
+    got = {"bit_exact": row["bit_exact"], "stages": row["stages"],
+           "pipelined.dispatches": dispatches}
+    want = {"bit_exact": base["bit_exact"], "stages": base["stages"],
+            "pipelined.dispatches": base["pipelined"]["dispatches"]}
+    bad = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+    check(not bad, f"graph != {BENCH_SERVE.name}: {bad}")
+    check(row["speedup"] >= GRAPH_MIN_SPEEDUP,
+          f"graph speedup {row['speedup']:.3f} < {GRAPH_MIN_SPEEDUP}")
+    return row
+
+
+def compiler_graph_fleet(dev, frontier) -> dict:
+    """One graph instance through a Fleet of the compiled-workload DSE
+    frontier's two ends: its output against Program.reference, every
+    stage of the chain on one device."""
+    ends = sorted(frontier, key=lambda p: p.time_us)
+    check(ends[0] is not ends[-1], "graph fleet: the frontier collapsed")
+    devices = [(p.label(), p.point.config) for p in (ends[0], ends[-1])]
+    program = _graph_program()
+    ins = program.random_inputs(seed=GRAPH_SEED)
+    fleet = Fleet(devices, device=dev)
+    out = run_program(fleet, program, ins)
+    check(np.array_equal(out, program.reference(ins)),
+          "graph fleet: output != Program.reference")
+    placed = sorted(set(fleet.placement.values()))
+    check(len(placed) == 1, f"graph fleet: one chain's stages on {placed}")
+    return {"devices": [n for n, _ in devices], "placed_on": placed[0],
+            "learned": len(fleet._learned)}
+
+
+def compiler_path(dev) -> dict:
+    """The compiler benchmark's fast sections and the serve benchmark's
+    graph section through the port on the card (module doc, phase 8)."""
+    base = json.loads(BENCH_COMPILER.read_text())
+    steps = {}
+    (rows, compiled), rounds, wall = _timed(compiler_suite, dev,
+                                            base["suite_parity"])
+    steps["suite_parity"] = {**_rounds_line(wall, rounds), "benches": rows}
+    tune, rounds, wall = _timed(compiler_autotune, dev, base["autotune"])
+    steps["autotune"] = {**_rounds_line(wall, rounds), "benches": tune}
+    co, rounds, wall = _timed(compiler_codesign, dev, base["codesign"])
+    steps["codesign"] = {**_rounds_line(wall, rounds), **co}
+    (dse_row, res), rounds, wall = _timed(compiler_dse, dev, compiled,
+                                          base["dse"])
+    steps["dse"] = {**_rounds_line(wall, rounds), **dse_row}
+    graph, rounds, wall = _timed(
+        compiler_graph, dev, json.loads(BENCH_SERVE.read_text())["graph"])
+    steps["graph"] = {**_rounds_line(wall, rounds), **graph}
+    gf, rounds, wall = _timed(compiler_graph_fleet, dev, res.frontier)
+    steps["graph_fleet"] = {**_rounds_line(wall, rounds), **gf}
+    emit({"compiler_path": steps})
+    return steps
+
+
+def compiler_profile(dev) -> dict:
+    """Busy share of one autotune drain: vec_mul (64, 512) over
+    SMOKE_SPACE on 2 CUs, on fresh seeded inputs each call (so nothing
+    is a memo hit)."""
+    fn, shapes = compiler.kernel_def("vec_mul", COMPILER_SIZES["vec_mul"][1])
+    seeds = iter(range(1000, 1010))
+    return busy_share("autotune drain, vec_mul over SMOKE_SPACE",
+                      lambda: compiler.autotune(
+                          fn, shapes, GGPUConfig(n_cus=COMPILER_CUS),
+                          space=compiler.SMOKE_SPACE, name="vec_mul",
+                          seed=next(seeds), device=dev))
 
 
 def main() -> int:
@@ -2197,10 +2488,20 @@ def main() -> int:
             f"{W}x{L}": n for (W, L), n in fleet_shapes.items()}}})
     emit({"fleet_profile": fleet_profile(dev, fleet["devices"],
                                          fleet["trace"])})
+    _, compiler_launches, compiler_shapes, compiler_wall = counted_path(
+        compiler_path, dev)
+    emit({"compiler_path_counts": {
+        **_rounds_line(compiler_wall, compiler_launches),
+        "pe_execute_launches": compiler_launches,
+        "pe_execute_launches_by_shape": {
+            f"{W}x{L}": n for (W, L), n in compiler_shapes.items()}}})
+    emit({"compiler_profile": compiler_profile(dev)})
     path_launches = {"simulator": launches, "serve": serve_launches,
-                     "dse": dse_launches, "fleet": fleet_launches}
+                     "dse": dse_launches, "fleet": fleet_launches,
+                     "compiler": compiler_launches}
     pe = pe_shapes_phase(dev, {"simulator": by_shape, "serve": serve_shapes,
-                               "dse": dse_shapes, "fleet": fleet_shapes})
+                               "dse": dse_shapes, "fleet": fleet_shapes,
+                               "compiler": compiler_shapes})
 
     lm_golden(dev)
     flash_launches, rglru_launches, _, ring_launches = lm_main_path(dev)
@@ -2251,6 +2552,7 @@ def main() -> int:
     check(serve_launches > 0, "the serving path launched no pe_execute")
     check(dse_launches > 0, "the DSE path launched no pe_execute")
     check(fleet_launches > 0, "the fleet path launched no pe_execute")
+    check(compiler_launches > 0, "the compiler path launched no pe_execute")
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(rglru_launches > 0, "the LM path launched no rglru_scan")
     emit({"ok": True, "device": {"platform": "gpu",

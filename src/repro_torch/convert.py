@@ -6,6 +6,12 @@ them as plain data (a config's ``dataclasses.asdict``, a bench's numpy
 arrays), so the two packages run the same machines on the same data
 without the port importing the JAX package.
 
+The compiler has no parameters; what carries across is the compiled
+artefact. ``compiled_from_reference`` and ``program_from_reference``
+rebuild a reference ``CompiledKernel``/``Program`` (its programs as numpy
+arrays, its expression IR node by node) as the port's, for the parity
+tests; the port's own path compiles with ``repro_torch.compiler``.
+
 The language models' state is their parameter tree:
 ``params_from_reference`` fills the port's modules from a tree in the
 reference's layout (nested dicts of arrays, each layer group stacked),
@@ -14,9 +20,14 @@ such as ``repro.models.schema.init_params`` gives or
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.compiler import ir
+from repro_torch.compiler.frontend import Program
+from repro_torch.compiler.lower import CompiledKernel, Schedule
 from repro_torch.ggpu import programs
 from repro_torch.ggpu.engine.config import GGPUConfig, ScalarConfig
 from repro_torch.models.config import ModelConfig
@@ -112,3 +123,52 @@ def bench_from_arrays(name: str, gpu_prog, gpu_mem, gpu_items: int,
         np.asarray(scalar_prog, np.int32).copy(),
         np.asarray(scalar_mem, np.int32).copy(), scalar_out, ref,
         int(gpu_n), int(scalar_n))
+
+
+def expr_from_reference(e, memo=None):
+    """The port's IR node for a reference IR node (``Item``, ``Const``,
+    ``LoopVar``, ``Bin``, ``Load``, ``Cond``, ``Guard``, ``Reduce``), by
+    class name and fields; a subtree shared in the reference stays
+    shared."""
+    memo = {} if memo is None else memo
+    if id(e) in memo:
+        return memo[id(e)]
+    cls = getattr(ir, type(e).__name__, None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise TypeError(f"not an IR node: {type(e).__name__}")
+    out = cls(**{f.name: _ir_field(getattr(e, f.name), memo)
+                 for f in dataclasses.fields(cls)})
+    memo[id(e)] = out
+    return out
+
+
+def _ir_field(v, memo):
+    if isinstance(v, (str, int, np.integer)):
+        return v
+    return expr_from_reference(v, memo)
+
+
+def compiled_from_reference(ck) -> CompiledKernel:
+    """The port's ``CompiledKernel`` for a reference one: its programs
+    copied as int32 arrays, its kernel's stores rebuilt as port IR, its
+    schedule by field."""
+    memo: dict = {}
+    k = ck.kernel
+    kernel = ir.Kernel(
+        name=k.name, arrays=dict(k.arrays), out_len=int(k.out_len),
+        n_items=int(k.n_items),
+        stores=[(expr_from_reference(a, memo), expr_from_reference(v, memo))
+                for a, v in k.stores])
+    return CompiledKernel(
+        ck.name, kernel, np.asarray(ck.prog, np.int32).copy(),
+        np.asarray(ck.scalar_prog, np.int32).copy(), int(ck.n_items),
+        Schedule(**dataclasses.asdict(ck.schedule)))
+
+
+def program_from_reference(prog) -> Program:
+    """The port's ``Program`` for a reference one: each stage by
+    ``compiled_from_reference``, the wiring and input sizes copied."""
+    return Program(prog.name,
+                   [compiled_from_reference(ck) for ck in prog.stages],
+                   [dict(src) for src in prog.sources],
+                   dict(prog.in_sizes))

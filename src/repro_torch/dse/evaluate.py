@@ -102,23 +102,37 @@ class Evaluator:
     builders); ``sizes`` optionally maps a bench name to the builder's
     (scalar, gpu) input sizes — ``None``/missing uses the paper's Table
     III defaults. ``check=True`` downloads each final image and verifies
-    it against the bench's numpy reference. ``device`` is where the
-    simulations run (``None``: the card). The reference's ``workloads=``
-    (compiled DSL kernels) comes with the compiler hooks, not yet
-    ported."""
+    it against the bench's numpy reference (a workload's against its own
+    ``ref``). ``device`` is where the simulations run (``None``: the
+    card).
+
+    ``workloads`` maps extra names to pre-built ``Bench``-shaped records
+    — e.g. compiled kernels from the tensor-expression DSL
+    (``repro_torch.compiler.CompiledKernel.as_bench()`` or
+    ``compiler.dsl_benches()``) — so the DSE sweeps generated workloads
+    alongside (or instead of) the fixed list. A workload needs
+    ``gpu_prog``/``gpu_mem``/``gpu_items``/``gpu_out``/``gpu_n``/``ref``;
+    its name may also appear in ``benches`` to pin the evaluation order."""
 
     def __init__(self, benches: Sequence[str] = DEFAULT_BENCHES,
                  sizes: Optional[Dict[str, Tuple[int, int]]] = None,
-                 check: bool = False, device=None):
-        self.bench_names = tuple(benches)
+                 check: bool = False,
+                 workloads: Optional[Dict[str, object]] = None,
+                 device=None):
+        workloads = dict(workloads or {})
+        self.bench_names = tuple(benches) + tuple(
+            n for n in workloads if n not in benches)
         self.device = _device.resolve(device)
         sizes = dict(sizes or DEFAULT_SIZES)
         self._benches = {}
         self._keys: Dict[str, tuple] = {}
         for name in self.bench_names:
-            build = getattr(programs, f"_{name}")
-            sz = sizes.get(name)
-            b = build(*sz) if sz is not None else build()
+            if name in workloads:
+                b = workloads[name]
+            else:
+                build = getattr(programs, f"_{name}")
+                sz = sizes.get(name)
+                b = build(*sz) if sz is not None else build()
             self._benches[name] = b
             # content-addressed memo key: safe to share across evaluators
             # with different bench sizes on the same executor

@@ -6,10 +6,11 @@ A :class:`BenchSpec` is the plugin contract of the ``BENCHES`` axis:
   * ``build(*sizes)`` constructs the ``programs.Bench`` record (ISA
     programs, memory images, numpy reference); no arguments means the
     paper's Table III sizes.
-  * ``kernel_def`` is the reference's traceable tensor-DSL definition
-    that the compiler and autotuner re-lower. The port has no compiler
-    yet (ROADMAP.md, queue item 7), so it is ``None`` on every built-in
-    until that slice lands.
+  * ``kernel_def(*sizes)`` (optional) is the traceable tensor-DSL
+    ``(fn, shapes)`` definition the compiler and autotuner re-lower under
+    candidate schedules; ``None`` marks an ISA-only bench the compiler
+    skips. Every built-in has one: ``compiler.suite._DEFS[name]``, looked
+    up when it is called, since the suite reaches back into this axis.
   * ``smoke_sizes`` are the (scalar, gpu) build arguments of the registry
     smoke's one minimal launch per bench (``programs.SMOKE_SIZES``).
   * ``paper`` marks the seven benches the paper's tables report.
@@ -35,7 +36,7 @@ class BenchSpec:
     """One registered workload (see module doc)."""
     name: str
     build: Callable          # (*sizes) -> programs.Bench
-    kernel_def: Optional[Callable] = None  # the compiler slice fills it
+    kernel_def: Optional[Callable] = None  # (*sizes) -> (fn, shapes)
     smoke_sizes: Tuple[int, ...] = ()
     paper: bool = False
 
@@ -47,10 +48,20 @@ class BenchSpec:
         }
 
 
+def _suite_def(name: str) -> Callable:
+    """``compiler.suite._DEFS[name]``, resolved at call time: the suite
+    imports this axis, so importing it here would close a cycle."""
+    def kernel_def(*sizes):
+        from repro_torch.compiler import suite
+        return suite._DEFS[name](*sizes)
+    return kernel_def
+
+
 for _name in LEGACY_ORDER:
     BENCHES.register(_name, BenchSpec(
         name=_name,
         build=getattr(programs, f"_{_name}"),
+        kernel_def=_suite_def(_name),
         smoke_sizes=programs.SMOKE_SIZES[_name],
         paper=_name in programs.PAPER_CYCLES))
 

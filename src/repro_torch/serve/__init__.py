@@ -3,17 +3,22 @@ G-GPU simulator — requests, executors (with the stuck-device timeout),
 the continuous-batching ``Scheduler`` (cohort/batch folding, pipelined
 drain, quarantine, retry, checksum audits, device-resident dependency
 patches), the multi-config ``Fleet`` (routing, health, eviction,
-hedging), the open-loop load generator and the legacy ``LaunchQueue`` —
-and the slot-batched LLM ``Engine``.
+hedging), kernel graphs (a compiled ``Program`` served as a dependency
+DAG, ``graphs``), the open-loop load generator and the legacy
+``LaunchQueue`` — and the slot-batched LLM ``Engine``.
 
-``repro_torch.serve.engine`` is the compatibility facade. Not ported
-yet: ``graphs`` (it needs the compiler's ``Program``; ROADMAP.md).
+``repro_torch.serve.engine`` is the compatibility facade.
 """
 from repro_torch.serve.executors import (DeviceTimeout, Executor,
                                          ExecutorStats, PendingChunk,
                                          get_executor, sim_key)
 from repro_torch.serve.fleet import (Fleet, FleetDevice, FleetResilience,
                                      HedgePolicy, pinned_makespan)
+from repro_torch.serve.graphs import (GraphTickets, extract_outputs,
+                                      run_chains_host_staged, run_program,
+                                      run_program_host_staged,
+                                      run_programs_host_staged,
+                                      submit_program, submit_programs)
 from repro_torch.serve.llm import Engine, EngineConfig
 from repro_torch.serve.loadgen import (LoadResult, bursty_arrivals,
                                        poisson_arrivals, replay)
@@ -31,10 +36,12 @@ __all__ = [
     "AdmissionError", "ChecksumError", "Chunk", "DeadlineExceeded", "Dep",
     "DependencyError", "DeviceTimeout", "EarliestFinishRouter", "Engine",
     "EngineConfig", "Executor", "ExecutorStats", "Fleet", "FleetDevice",
-    "FleetResilience", "HedgePolicy", "KernelLaunch", "LaunchQueue",
-    "LoadResult", "PendingChunk", "Quarantined", "Request", "Result",
-    "RetryPolicy", "RoundRobinRouter", "Scheduler", "bursty_arrivals",
-    "get_executor", "pinned_makespan", "plan_chunks", "plan_fifo",
-    "plan_waves", "poisson_arrivals", "replay", "result_checksum",
-    "sim_key", "wavefronts",
+    "FleetResilience", "GraphTickets", "HedgePolicy", "KernelLaunch",
+    "LaunchQueue", "LoadResult", "PendingChunk", "Quarantined", "Request",
+    "Result", "RetryPolicy", "RoundRobinRouter", "Scheduler",
+    "bursty_arrivals", "extract_outputs", "get_executor", "pinned_makespan",
+    "plan_chunks", "plan_fifo", "plan_waves", "poisson_arrivals", "replay",
+    "result_checksum", "run_chains_host_staged", "run_program",
+    "run_program_host_staged", "run_programs_host_staged", "sim_key",
+    "submit_program", "submit_programs", "wavefronts",
 ]

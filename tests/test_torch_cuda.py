@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: ``pe_execute`` against its plain version
 ``select_alu`` bit for bit, and the simulator's card path (sync and async
 entry points, patches, a Scheduler drain, a DSE Evaluator, a Fleet and a
-fault scenario) against its CPU path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
+fault scenario, a compiled kernel's verify, an autotune and a kernel
+graph's drain) against its CPU path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
 ``rglru_scan_ref`` within the tolerances of ``tests/test_kernels.py``, and
 the LM's kernel path against its plain path. Needs an NVIDIA card
 (sm_90a) and nvcc; skipped without a card.
@@ -239,6 +240,60 @@ def test_fleet_and_seu_scenario_on_card(cuda):
             np.testing.assert_array_equal(g.mem, w.mem)
             assert {k: g.info[k] for k in w.info if k != "settled_s"} == \
                 {k: w.info[k] for k in w.info if k != "settled_s"}
+
+
+def test_compiled_kernel_verify_on_card(cuda):
+    """A compiled kernel's ``verify`` on the card, SIMT and scalar: its
+    output equals the oracle and its info equals the CPU path's."""
+    from repro_torch.compiler import compile_kernel
+    k = compile_kernel(lambda a, b: ((a - b) * a).seg_sum(32),
+                       dict(a=512, b=512), name="user_segred")
+    ins = k.random_inputs(seed=3)
+    for cfg, scalar in ((GGPUConfig(n_cus=2), False),
+                        (ScalarConfig(), True)):
+        card = k.verify(ins, cfg, scalar=scalar)
+        assert card == k.verify(ins, cfg, scalar=scalar, device="cpu")
+
+
+def test_autotune_on_card_equals_cpu(cuda):
+    """One ``autotune`` over SMOKE_SPACE on the card (default device)
+    picks the schedule, with the rows, that the CPU path picks."""
+    from repro_torch.compiler import SMOKE_SPACE, autotune, kernel_def
+    fn, shapes = kernel_def("vec_mul", 512)
+    cfg = GGPUConfig(n_cus=2)
+    card = autotune(fn, shapes, cfg, space=SMOKE_SPACE, name="vm_card")
+    cpu = autotune(fn, shapes, cfg, space=SMOKE_SPACE, name="vm_card",
+                   device="cpu")
+    assert card.report() == cpu.report()
+    assert card.best_schedule.label() == "c2"
+
+
+def test_submit_programs_drain_on_card_equals_cpu(cuda):
+    """A stage-major drain of a 3-stage graph on the card: one dispatch
+    a stage, outputs and infos equal the CPU path's and the oracle."""
+    from repro_torch.compiler import compile_graph
+    from repro_torch.serve import extract_outputs, submit_programs
+    prog = compile_graph(lambda a, b: (a * b).seg_sum(64) * 3 + 1,
+                         {"a": 256, "b": 256}, name="map_reduce_scale")
+    rng = np.random.default_rng(7)
+    ins = [{"a": rng.integers(-100, 100, 256).astype(np.int32),
+            "b": rng.integers(-100, 100, 256).astype(np.int32)}
+           for _ in range(8)]
+    got = {}
+    for dev in (cuda, "cpu"):
+        s = Scheduler(GGPUConfig(n_cus=2), max_batch=8, device=dev)
+        d0 = s.executor.stats.dispatches
+        handles = submit_programs(s, prog, ins)
+        results = s.drain()
+        assert s.executor.stats.dispatches - d0 == 3
+        got[str(dev)] = (extract_outputs(results, handles),
+                         [r.info for r in results])
+    (card, card_infos), (cpu, cpu_infos) = got["cuda"], got["cpu"]
+    for g, w, i in zip(card, cpu, ins):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, prog.reference(i))
+    strip = lambda d: {k: v for k, v in d.items() if k != "settled_s"}  # noqa
+    assert [strip(i) for i in card_infos] == [strip(i) for i in cpu_infos]
 
 
 # ---------------------------------------------------------------------------

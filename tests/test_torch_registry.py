@@ -150,7 +150,8 @@ def test_bench_specs_build_the_port_benches():
         programs.all_benches())
     for name in LEGACY_ORDER:
         spec = BENCHES.get(name)
-        assert spec.kernel_def is None          # the compiler slice
+        assert spec.kernel_def is not None      # compiler.suite._DEFS
+        assert spec.describe() == jax_registry.BENCHES.get(name).describe()
         assert spec.paper == (name in programs.PAPER_CYCLES)
         b = spec.build(*spec.smoke_sizes)
         want = programs.build(name, *programs.SMOKE_SIZES[name])
