@@ -44,9 +44,8 @@ Phases, each fatal on any mismatch:
      batch of slice / nothing / full image) against the golden file, and
      a BlockPatch and an XorBlockPatch chain against the same chain
      staged through the host (the producers' memory unchanged); one
-     Scheduler drain (max_inflight 8) of every 8-CU shared bench but
-     xcorr twice, the golden image against the golden file and a seeded
-     variant,
+     Scheduler drain (max_inflight 8) of every 8-CU shared bench twice,
+     the golden image against the golden file and a seeded variant,
      checksum-audited, against the numpy reference and the golden
      file's stats (the JAX package's run of the same variant); the serve
      benchmark's throughput traffic (vec_mul(32, 512) on 2 CUs, 8 bursts of 16
@@ -74,7 +73,8 @@ Phases, each fatal on any mismatch:
      benchmarks/baselines/BENCH_resilience.json and the benchmark's
      invariants (hedged p99 below unhedged among them); the registry's
      selfcheck and smoke (every bench, memsys, policy, router, traffic
-     pattern and fault scenario), with no problem;
+     pattern and fault scenario) and one cross-product cell under SEU
+     injection, with no problem;
   8. compiler and kernel graphs: the compiler benchmark's fast sections
      through repro_torch.compiler on 2 CUs — the eight compiled benches
      and their hand twins through run_kernel (cycles, bit-exactness,
@@ -138,6 +138,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import compiler  # noqa: E402
+from repro_torch.compiler import suite  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import init_model  # noqa: E402
 from repro_torch.ggpu import isa, programs  # noqa: E402
@@ -234,15 +235,7 @@ REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
            "(rglru, rglru, local) unit) at f32 compute, so that the JAX "
            "package can compute the golden file on a CPU; full width",
            "LM main path: the full 26-layer model is held against its own "
-           "plain path on the card, not against the JAX package",
-           "serving drain: the 8-CU xcorr cohort (golden image and seeded "
-           "variant, about 41k eager lockstep rounds) is left out so that "
-           "the compiler phase fits the time limit; the main path still "
-           "runs the golden image through the async entry point, and the "
-           "drain keeps the other seven benches",
-           "registry: the cross-product cell (shared, cohort, "
-           "earliest-finish, seu; about 6.4k rounds) is left out on the "
-           "card; tests/test_torch_registry.py runs it on the CPU path"]
+           "plain path on the card, not against the JAX package"]
 
 # The LM serving path: RecurrentGemma-2B, numpy-seeded weights, six
 # prompts of seeded token ids in two waves of 4 slots (the first prefills
@@ -1419,10 +1412,6 @@ ASYNC_BENCHES = ("mat_mul", "copy", "vec_mul", "fir", "div_int", "reduction")
 SERVE_BENCH, SERVE_SIZES, SERVE_CUS = "vec_mul", (32, 512), 2
 SERVE_BURSTS, SERVE_BURST, SERVE_MAX_BATCH, SERVE_SEED = 8, 16, 2, 0
 SERVE_REPS = 3          # passes of the traffic at each depth, in turns
-# the drain's benches: xcorr (41k rounds of a cohort of 2 at Table III
-# size) is cut (REDUCED)
-DRAIN_CUT = ("xcorr",)
-DRAIN_BENCHES = tuple(n for n in programs.LEGACY_ORDER if n not in DRAIN_CUT)
 POISON_MAX_STEPS = 50
 
 
@@ -1551,15 +1540,15 @@ def patch_chain(benches, dev) -> dict:
 
 
 def serve_drain(benches, golden, dev):
-    """Every 8-CU shared bench but DRAIN_CUT twice, its golden image and a
-    seeded variant, through one Scheduler drain with max_inflight 8. The
+    """Every 8-CU shared bench twice, its golden image and a seeded
+    variant, through one Scheduler drain with max_inflight 8. The
     originals download their full image, held against the golden file;
     the variants their output slice, audited against the checksum of the
     bench's numpy reference and held against it and against the golden
     file's stats (the JAX reference's run of the same variant)."""
     sched = Scheduler(GGPUConfig(n_cus=8), max_inflight=8, device=dev)
     expected = {}
-    for name in DRAIN_BENCHES:
+    for name in programs.LEGACY_ORDER:
         key = f"8cu/shared/{name}"
         prog, mem0, n, out, _ = launch(MAIN_RUNS_BY_KEY[key], benches)
         sched.submit(prog, mem0, n, tag=key)
@@ -1570,7 +1559,7 @@ def serve_drain(benches, golden, dev):
                                      audit=result_checksum(vexp)))
         expected[run.key] = vexp
     results = sched.drain()
-    check(not sched.quarantined and len(results) == 2 * len(DRAIN_BENCHES),
+    check(not sched.quarantined and len(results) == 16,
           f"serve drain: {len(results)} results, quarantined "
           f"{ {t: str(q.error) for t, q in sched.quarantined.items()} }")
     for res in results:
@@ -1695,7 +1684,7 @@ def serve_path(benches, golden, dev) -> dict:
     steps["async_parity"] = _rounds_line(wall, rounds)
     stats, rounds, wall = _timed(serve_drain, benches, golden, dev)
     steps["drain"] = {**_rounds_line(wall, rounds), **stats,
-                      "launches_per_s": 2 * len(DRAIN_BENCHES) / wall}
+                      "launches_per_s": 16 / wall}
     b = programs.build(SERVE_BENCH, *SERVE_SIZES)
     (rows, traffic_out), rounds, wall = _timed(serving_traffic, b, dev)
     steps["traffic"] = rows
@@ -1730,8 +1719,8 @@ def busy_share(name, fn) -> dict:
 def serve_profile(benches, dev) -> dict:
     """Busy share of the serving phase's two kinds of work: one burst of
     the throughput traffic (8 cohorts of 2 on 2 CUs), and the first 100
-    rounds of the drain's largest chunk (parallel_sel, a cohort of 2 on 8
-    CUs; stopped by max_steps and never resolved)."""
+    rounds of the drain's largest chunk (xcorr, a cohort of 2 on 8 CUs;
+    stopped by max_steps and never resolved)."""
     b = programs.build(SERVE_BENCH, *SERVE_SIZES)
     burst = serve_traffic(b)[0]
 
@@ -1742,14 +1731,14 @@ def serve_profile(benches, dev) -> dict:
         for mem in burst:
             sched.submit(b.gpu_prog, mem, b.gpu_items)
         sched.drain()
-    x = benches["parallel_sel"]
+    x = benches["xcorr"]
     cfg = GGPUConfig(n_cus=8, max_steps=100)
-    cohort_rounds = lambda: run_kernel_cohort_async(  # noqa: E731
-        x.gpu_prog, [x.gpu_mem, launch(VARIANTS["parallel_sel"], benches)[1]],
+    xcorr_rounds = lambda: run_kernel_cohort_async(  # noqa: E731
+        x.gpu_prog, [x.gpu_mem, launch(VARIANTS["xcorr"], benches)[1]],
         x.gpu_items, cfg, device=dev)
     return {"traffic_burst": busy_share("traffic burst", one_burst),
-            "drain_parallel_sel_cohort": busy_share(
-                "parallel_sel cohort of 2, 100 rounds", cohort_rounds)}
+            "drain_xcorr_cohort": busy_share("xcorr cohort of 2, 100 rounds",
+                                             xcorr_rounds)}
 
 
 # -- phase 6: the DSE sweep on the card --------------------------------------
@@ -1841,6 +1830,7 @@ RES_EXACT = {
     "straggler": ("n",)}
 # resilience_bench.invariant_problems' limits
 MIN_SERVED_CORRECT, MIN_GOODPUT_RATIO = 0.999, 0.2
+CELL = ("shared", "cohort", "earliest-finish", "seu")
 
 
 def fleet_leg(dev) -> tuple:
@@ -2096,12 +2086,14 @@ def resilience_legs(dev) -> dict:
 
 
 def registry_leg(dev) -> dict:
-    """selfcheck and smoke_all on the card with no problem (the
-    cross-product cell is cut: REDUCED)."""
+    """selfcheck and smoke_all on the card with no problem, then one
+    cross-product cell under SEU injection with nothing lost."""
     out = {}
     for name, fn in (("selfcheck", registry_smoke.selfcheck),
                      ("smoke_all", lambda emit: registry_smoke.smoke_all(
-                         emit, device=dev))):
+                         emit, device=dev)),
+                     ("cell", lambda emit: registry_smoke.run_cell(
+                         *CELL[:3], emit, fault=CELL[3], device=dev))):
         lines = []
         t0, r0 = time.perf_counter(), pe_simd.LAUNCHES
         bad = fn(lines.append)
@@ -2109,6 +2101,7 @@ def registry_leg(dev) -> dict:
         out[name] = {**_rounds_line(time.perf_counter() - t0,
                                     pe_simd.LAUNCHES - r0),
                      "lines": lines}
+    out["cell"]["cell"] = list(CELL)
     return out
 
 
@@ -2145,12 +2138,8 @@ BENCH_COMPILER = ROOT / "benchmarks" / "baselines" / "BENCH_compiler.json"
 # parity, the autotune of copy and vec_mul over SMOKE_SPACE, the co-design
 # over 1 and 2 CUs at 500 and 667 MHz, and a DSE over compiled workloads
 # (two suite kernels and user_segred (512, 32), a bench with seed 11).
-COMPILER_SIZES = {
-    "copy": (64, 512), "vec_mul": (64, 512), "div_int": (64, 512),
-    "reduction": (64, 512, 8), "fir": (64, 512), "mat_mul": (8, 16),
-    "xcorr": (32, 128), "parallel_sel": (32, 128)}
+COMPILER_SIZES, COMPILER_SPECS = suite.FAST_SIZES, suite.FAST_SPECS
 COMPILER_CUS, COMPILER_TUNE = 2, ("copy", "vec_mul")
-COMPILER_SPECS = {"cus": (1, 2), "freq_targets": (500.0, 667.0)}
 COMPILER_SAMPLE, USER_SEGRED, USER_SEED = ("vec_mul", "reduction"), \
     (512, 32), 11
 SUITE_EXACT = ("cycles_hand", "cycles_dsl", "cycle_ratio", "bit_exact",

@@ -52,6 +52,8 @@ from repro_torch.compiler.ir import CompileError
 from repro_torch.compiler.lower import (DEFAULT_SCHEDULE, CompiledKernel,
                                         Schedule)
 from repro_torch.compiler.suite import def_args, hand_benches, kernel_def
+from repro_torch.dse.evaluate import Evaluator
+from repro_torch.dse.search import cycle_objective, joint_frontier, search
 from repro_torch.ggpu.programs import Bench
 
 
@@ -184,9 +186,6 @@ def autotune(fn: Callable, shapes, cfg, *,
     default kernel's oracle, and ranked by true cycles. Deterministic:
     same (fn, shapes, space, cfg) -> same chosen schedule. The drain runs
     on ``device`` (``None``: the card; ``"cpu"``: the plain path)."""
-    # imported here: dse reaches serve, whose graphs import this package
-    from repro_torch.dse.evaluate import Evaluator
-
     base = compile_kernel(fn, shapes, name=name)
     name = base.name
     if inputs is None:
@@ -276,9 +275,6 @@ def codesign(defs: Dict[str, Tuple[Callable, Dict[str, object]]],
     one population by ``dse.joint_frontier``, so the returned frontier
     is over co-designed configurations. Every simulation runs on
     ``device`` (``None``: the card)."""
-    from repro_torch.dse.evaluate import Evaluator
-    from repro_torch.dse.search import cycle_objective, joint_frontier, search
-
     if objective is None:
         objective = cycle_objective
     if not defs:

@@ -86,6 +86,16 @@ _DEFS: Dict[str, Callable[..., KernelDef]] = {
     "reduction": d_reduction,
 }
 
+#: the compiler benchmark's fast sizes (``hand_benches`` size arguments)
+#: and the (cus, freq_targets) grid of its fast co-design and DSE sections;
+#: the card's check and the CPU parity tests both run at these
+FAST_SIZES: Dict[str, Tuple[int, ...]] = {
+    "copy": (64, 512), "vec_mul": (64, 512), "div_int": (64, 512),
+    "reduction": (64, 512, 8), "fir": (64, 512), "mat_mul": (8, 16),
+    "xcorr": (32, 128), "parallel_sel": (32, 128),
+}
+FAST_SPECS = {"cus": (1, 2), "freq_targets": (500.0, 667.0)}
+
 
 def kernel_def(name: str, *args) -> KernelDef:
     """The traceable ``(fn, shapes)`` definition of a suite bench — the

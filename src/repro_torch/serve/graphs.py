@@ -44,12 +44,14 @@ final stage's output). Two host-staged references bracket it:
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.compiler.frontend import Program
 from repro_torch.serve.request import Dep, Request
+
+if TYPE_CHECKING:
+    from repro_torch.compiler.frontend import Program
 
 
 class GraphTickets(NamedTuple):

@@ -20,16 +20,14 @@ from repro.ggpu.engine import GGPUConfig as RGGPUConfig
 
 import repro_torch.compiler as PC
 from repro_torch import dse
+from repro_torch.compiler.suite import FAST_SIZES, FAST_SPECS
 from repro_torch.ggpu.engine import GGPUConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 BASELINE = json.loads((ROOT / "benchmarks" / "baselines"
                        / "BENCH_compiler.json").read_text())
 CPU = "cpu"
-FAST_SIZES = {"copy": (64, 512), "vec_mul": (64, 512),
-              "reduction": (64, 512, 8)}
 TUNE = ("copy", "vec_mul")
-SPECS = {"cus": (1, 2), "freq_targets": (500.0, 667.0)}
 
 
 def _rows(rows):
@@ -94,9 +92,9 @@ def test_codesign_joint_frontier_equals_jax():
     hands = RC.hand_benches(FAST_SIZES)
     rdefs = {n: RC.kernel_def(n, *RC.def_args(n, hands[n])) for n in TUNE}
     pdefs = {n: PC.kernel_def(n, *RC.def_args(n, hands[n])) for n in TUNE}
-    want = RC.codesign(rdefs, jax_dse.enumerate_specs(**SPECS),
+    want = RC.codesign(rdefs, jax_dse.enumerate_specs(**FAST_SPECS),
                        space=RC.SMOKE_SPACE)
-    got = PC.codesign(pdefs, dse.enumerate_specs(**SPECS),
+    got = PC.codesign(pdefs, dse.enumerate_specs(**FAST_SPECS),
                       space=PC.SMOKE_SPACE, device=CPU)
     assert sorted(got.results) == sorted(want.results)
     assert _rows(got.report()) == _rows(want.report())
@@ -130,12 +128,12 @@ def test_compiled_workload_dse_equals_jax_and_baseline():
     for n in rwl:
         assert pwl[n].gpu_prog.tobytes() == rwl[n].gpu_prog.tobytes()
         assert pwl[n].gpu_mem.tobytes() == rwl[n].gpu_mem.tobytes()
-    want = jax_dse.search(specs=jax_dse.enumerate_specs(**SPECS),
+    want = jax_dse.search(specs=jax_dse.enumerate_specs(**FAST_SPECS),
                           evaluator=jax_dse.Evaluator(
                               benches=(), workloads=rwl, check=True))
     ev = dse.Evaluator(benches=(), workloads=pwl, check=True, device=CPU)
     assert ev.bench_names == tuple(rwl)
-    got = dse.search(specs=dse.enumerate_specs(**SPECS), evaluator=ev)
+    got = dse.search(specs=dse.enumerate_specs(**FAST_SPECS), evaluator=ev)
     assert _rows(got.report()) == _rows(want.report())
     for gp, wp in zip(got.points, want.points):
         for n in rwl:

@@ -29,6 +29,7 @@ import repro_torch.compiler as PC
 from repro_torch import convert
 from repro_torch.compiler import ir as pir
 from repro_torch.compiler import opt as popt
+from repro_torch.compiler.suite import FAST_SIZES
 from repro_torch.ggpu import isa, programs
 from repro_torch.ggpu.engine import GGPUConfig, ScalarConfig
 
@@ -36,12 +37,6 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_compiler_diff import N, _random_exprfn, _random_schedule  # noqa: E402
 
 CPU = "cpu"
-#: the compiler benchmark's fast sizes (benchmarks/compiler_bench.py)
-FAST_SIZES = {
-    "copy": (64, 512), "vec_mul": (64, 512), "div_int": (64, 512),
-    "reduction": (64, 512, 8), "fir": (64, 512), "mat_mul": (8, 16),
-    "xcorr": (32, 128), "parallel_sel": (32, 128),
-}
 SIZE_SETS = {"smoke": dict(programs.SMOKE_SIZES), "fast": FAST_SIZES}
 STAT_KEYS = ("cycles", "instrs", "mem_ops", "hits", "misses", "steps")
 
