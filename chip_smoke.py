@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one NVIDIA card: the G-GPU simulator's
-main path and the RecurrentGemma-2B serving path.
+main path, the RecurrentGemma-2B serving path and SmolLM-360M training.
 
     python3 chip_smoke.py
 
@@ -110,7 +110,23 @@ Phases, each fatal on any mismatch:
      with use_kernels=False on the card, and the kernel path again fed
      the plain path's tokens: the logits of every prefill and decode step
      agree within 0.3, and planted faults (the window halved, the scan fed
-     bf16 inputs) must exceed it.
+     bf16 inputs) must exceed it;
+  11. LM training (lm_train_path): smollm-360m at full width cut to 4
+     layers, f32 compute, 4 AdamW steps in 2 microbatches through
+     make_train_step against src/repro_torch/train/golden_train.json,
+     which the JAX package computes on the CPU, and two planted faults
+     (decay on every tensor, bias correction off) that must fall outside
+     its limits; then python -m repro_torch.launch.train in-process at
+     full width (32 layers, bf16 compute, 12 steps of (8, 2048), the
+     plan's remat "dots", a temporary checkpoint directory in the
+     checkout): the loss must fall by 10 %, no kernel launches (the
+     kernels have no backward; training runs the plain attention and
+     scan, as the JAX package does), with ms per step, tokens/s, model
+     FLOP share of 989 TFLOP/s, peak memory against the plan's estimate,
+     the checkpoints' seconds and bytes, a determinism probe and a
+     2-step profile; then the Trainer at 4 layers (bf16) for 6 steps
+     uninterrupted against a run that fails at step 4 and resumes from
+     its step-3 checkpoint, equal bit for bit.
 
 Matrix products run in full precision wherever the port is compared with
 a reference (no TF32, no reduced-precision bf16 reductions).
@@ -127,6 +143,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -155,7 +172,17 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
+                                       to_device)
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.config import ShapeSpec  # noqa: E402
+from repro_torch.models.steps import make_train_step  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.roofline.analysis import (PEAK_FLOPS,  # noqa: E402
+                                           model_flops_estimate)
+from repro_torch.train import checkpoint  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainConfig  # noqa: E402
 from repro_torch.models.recurrent import linear_scan  # noqa: E402
 from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.registry import FAULTS  # noqa: E402
@@ -1294,14 +1321,15 @@ def verify_folds(pending, dev) -> None:
                   f"{run.key}: {what} launch != its single run")
 
 
-def _profiled(fn):
-    """Run ``fn`` once under torch.profiler. Returns (the device kernels'
-    events, profiled host wall ms)."""
+def _profiled(fn, host: bool = True):
+    """Run ``fn`` once under torch.profiler (tracing host ops too unless
+    ``host`` is False). Returns (the device kernels' events, profiled
+    host wall ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2391,9 +2419,359 @@ def compiler_profile(dev) -> dict:
                           seed=next(seeds), device=dev))
 
 
+# -- phase 11: LM training on the card ---------------------------------------
+
+GOLDEN_TRAIN = ROOT / "src" / "repro_torch" / "train" / "golden_train.json"
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SEED = 0
+GOLDEN_TRAIN_LAYERS = 4
+GOLDEN_TRAIN_STEPS = 4
+GOLDEN_TRAIN_MICROBATCHES = 2
+GOLDEN_TRAIN_DATA = {"seq_len": 256, "global_batch": 4, "seed": 1234}
+GOLDEN_TRAIN_HP = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 8}
+# Limits of the golden run's errors (train_golden_errs). The port on the
+# CPU is within 2.6e-7 (loss), 1.0e-6 (grad_norm), 0 (lr), 5.6e-5 (sum)
+# and 1.9e-7 (max |x|) of the JAX package (f32 sums in other orders); each
+# limit is ~100x that, room for cuBLAS's orders on the card, where an
+# H100 (700 W) read 1.3e-7, 7.0e-7, 0, 2.2e-4 and 1.9e-7 (PERF.md). The
+# planted faults land at >= 6x the loss limit and >= 16x the max |x|
+# limit (decay on every tensor: 1.2e-4, 2.7e-4, 0, 10.0, 3.2e-4) and far
+# beyond (bias correction off: 0.13, 0.20, 0, 10.9, 1.1e-2).
+TRAIN_GOLDEN_TOL = {"loss_rel": 2e-5, "grad_norm_rel": 1e-4, "lr_rel": 1e-6,
+                    "sum_err": 5e-3, "max_abs_rel": 2e-5}
+# the launcher's command line of the main path, and its timed steps
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 12, 2048, 8
+TRAIN_ARGV = ("--arch", TRAIN_ARCH, "--full-config", "--steps",
+              str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ), "--batch",
+              str(TRAIN_BATCH))
+TRAIN_TIMED = slice(2, TRAIN_STEPS)          # steps 3-12
+# the resume check: full width, 4 layers, bf16, the golden run's data
+RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_FAIL_AT = 6, 3, 4
+
+
+def train_config(golden: bool = False):
+    """The port's SmolLM-360M as training runs it (the plain path, the
+    planner's remat), or the golden run's (4 layers, f32 compute)."""
+    cfg = get_config(TRAIN_ARCH).replace(use_kernels=False, remat="dots")
+    if golden:
+        cfg = cfg.replace(n_layers=GOLDEN_TRAIN_LAYERS,
+                          compute_dtype="float32")
+    return cfg
+
+
+def train_golden_spec() -> dict:
+    """What golden_train.json must have been computed for."""
+    return {"arch": TRAIN_ARCH, "n_layers": GOLDEN_TRAIN_LAYERS,
+            "compute_dtype": "float32", "remat": "dots",
+            "seed": TRAIN_SEED, "steps": GOLDEN_TRAIN_STEPS,
+            "microbatches": GOLDEN_TRAIN_MICROBATCHES,
+            "data": GOLDEN_TRAIN_DATA, "hp": GOLDEN_TRAIN_HP}
+
+
+def tensor_summary(named) -> dict:
+    """{name: {"numel", "sum", "max_abs"}} of numpy arrays (the sum in
+    f64)."""
+    return {n: {"numel": int(x.size),
+                "sum": float(np.sum(x, dtype=np.float64)),
+                "max_abs": float(np.abs(x).max())} for n, x in named}
+
+
+def golden_train_batches() -> list:
+    """The golden run's batches, as SyntheticLM makes them here. They are
+    kept in golden_train.json, and the card's run reads them from there:
+    numpy's ``Generator.zipf`` draws other tokens under other numpy
+    versions (the card's machine has another one), so the pipeline's
+    batches are the same only within one installation."""
+    data = SyntheticLM(DataConfig(train_config().vocab_size,
+                                  **GOLDEN_TRAIN_DATA))
+    return [{k: v.tolist() for k, v in data.batch_at(s).items()}
+            for s in range(GOLDEN_TRAIN_STEPS)]
+
+
+def train_golden_record(dev, batches) -> dict:
+    """The golden run on ``dev`` over ``batches`` (the golden file's):
+    per step loss, grad_norm and lr, and the final parameters'
+    summaries."""
+    cfg = train_config(golden=True)
+    model = init_model(cfg, TRAIN_SEED, dev)
+    model.requires_grad_(True)
+    opt = adamw.init(dict(model.named_parameters()))
+    step = make_train_step(cfg, adamw.AdamWConfig(**GOLDEN_TRAIN_HP),
+                           GOLDEN_TRAIN_MICROBATCHES)
+    steps = []
+    for batch in batches:
+        metrics = step(model, opt, to_device(
+            {k: np.asarray(v, np.int32) for k, v in batch.items()}, dev))
+        steps.append({k: float(v) for k, v in sorted(metrics.items())})
+    return {"steps": steps, "tensors": tensor_summary(
+        (n, to_numpy(p.detach())) for n, p in model.named_parameters())}
+
+
+def train_golden_errs(record, golden) -> dict:
+    """The record's largest errors against the golden file's, each in
+    the unit TRAIN_GOLDEN_TOL limits."""
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    steps = list(zip(record["steps"], golden["steps"]))
+    tens = [(record["tensors"][n], t) for n, t in golden["tensors"].items()]
+    return {
+        "loss_rel": max(rel(a["loss"], b["loss"]) for a, b in steps),
+        "grad_norm_rel": max(rel(a["grad_norm"], b["grad_norm"])
+                             for a, b in steps),
+        "lr_rel": max(rel(a["lr"], b["lr"]) for a, b in steps),
+        # a sum's error over lr * sqrt(numel): the rms error per element
+        # in units of lr where the elements' errors are independent
+        "sum_err": max(abs(a["sum"] - b["sum"]) / math.sqrt(b["numel"])
+                       for a, b in tens) / GOLDEN_TRAIN_HP["lr"],
+        "max_abs_rel": max(rel(a["max_abs"], b["max_abs"]) for a, b in tens)}
+
+
+# planted faults: (name, module, attribute, replacement)
+TRAIN_FAULTS = (
+    ("weight decay on every tensor, 1-D ones included", M, "decay_ndims",
+     lambda model: {n: 2 for n, _ in model.named_parameters()}),
+    ("AdamW bias correction off", adamw, "bias_corrections",
+     lambda hp, step: (1.0, 1.0)),
+)
+
+
+def _planted(fault, fn, *args):
+    _, mod, attr, repl = fault
+    orig = getattr(mod, attr)
+    setattr(mod, attr, repl)
+    try:
+        return fn(*args)
+    finally:
+        setattr(mod, attr, orig)
+
+
+def _train_golden_over(errs) -> list:
+    return [k for k, v in errs.items() if v > TRAIN_GOLDEN_TOL[k]]
+
+
+def lm_train_golden(dev) -> dict:
+    """The golden run on the card against golden_train.json, and each
+    planted fault, which must fall outside TRAIN_GOLDEN_TOL."""
+    golden = json.loads(GOLDEN_TRAIN.read_text())
+    check(golden["spec"] == train_golden_spec(),
+          f"{GOLDEN_TRAIN.name} was made for {golden['spec']}, not "
+          f"{train_golden_spec()}: regenerate it")
+    batches = golden["batches"]
+    here = golden_train_batches() == batches
+    t0 = time.perf_counter()
+    errs = train_golden_errs(train_golden_record(dev, batches), golden)
+    wall = time.perf_counter() - t0
+    faults = {}
+    for fault in TRAIN_FAULTS:
+        ferrs = train_golden_errs(_planted(fault, train_golden_record, dev,
+                                           batches), golden)
+        faults[fault[0]] = {"errs": ferrs, "over": _train_golden_over(ferrs)}
+    out = {"layers": GOLDEN_TRAIN_LAYERS, "compute": "float32",
+           "steps": GOLDEN_TRAIN_STEPS, "wall_s": wall, "errs": errs,
+           "tol": TRAIN_GOLDEN_TOL, "planted_faults": faults,
+           "numpy": np.__version__,
+           "synthetic_batches_equal_the_golden_files": here}
+    emit({"lm_train_golden": out})
+    over = _train_golden_over(errs)
+    check(not over, f"golden training run: {over} over the limit: {errs}")
+    for name, f in faults.items():
+        check(bool(f["over"]), f"planted fault '{name}' passes the golden "
+              f"training limits: {f['errs']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_saves(saves: list):
+    """A wrapper of checkpoint.save that records each save's seconds and
+    bytes (the device-to-host copy and the write) in ``saves``."""
+    save = checkpoint.save
+
+    def timed(ckpt_dir, step, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, *args, **kwargs)
+        saves.append({"step": step, "seconds": time.perf_counter() - t0,
+                      "bytes": (path / "arrays.npz").stat().st_size})
+        return path
+    return save, timed
+
+
+def _grads_of(model, cfg, batch) -> dict:
+    loss = M.loss_fn(model, cfg, batch)
+    params = dict(model.named_parameters())
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def train_profile(trainer, model, opt, steps: int = 2) -> dict:
+    """Busy share and top device ops of ``steps`` train steps: each run
+    unprofiled (host wall clock to a synchronize) and then under
+    torch.profiler, on the main path's next batches."""
+    first = trainer.tc.steps
+    batches = [to_device(trainer.data.batch_at(first + i), trainer.device)
+               for i in range(2 * steps)]
+
+    def run(bs):
+        def fn():
+            for b in bs:
+                trainer.step_fn(model, opt, b)
+        return fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(batches[:steps])()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    # device activity only: a step is ~51k device ops, and host events
+    # would double what the profiler records and then sorts through
+    kernels, profiled_ms = _profiled(run(batches[steps:]), host=False)
+    busy = _device_ms_of(kernels)
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "profile_s": time.perf_counter() - t0,
+            "profiled_wall_ms_per_step": profiled_ms / steps,
+            "device_ms_per_step": busy / steps,
+            "device_busy_share": busy / wall_ms,
+            "device_ops_per_step": len(kernels) / steps,
+            "top_device_ms_per_step": {
+                k: v / steps for k, v in _top(kernels, 10).items()}}
+
+
+def lm_train_main(dev) -> dict:
+    """``python -m repro_torch.launch.train`` in-process at full width on
+    the card (TRAIN_ARGV, a temporary checkpoint directory in the
+    checkout): the loss must fall by 10 %; step time, throughput, model
+    FLOP share, peak memory against the plan, checkpoint cost, a profile
+    and a determinism probe (one batch's gradients twice)."""
+    saves: list = []
+    save, timed = _timed_saves(saves)
+    with tempfile.TemporaryDirectory(prefix=".train_ckpt_", dir=ROOT) as d:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        checkpoint.save = timed
+        t0 = time.perf_counter()
+        try:
+            out = launch_train.main(list(TRAIN_ARGV) + ["--ckpt-dir", d])
+        finally:
+            checkpoint.save = save
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    trainer, model, opt, mp = (out["trainer"], out["model"], out["opt"],
+                               out["plan"])
+    cfg = trainer.cfg
+    log = trainer.metrics_log
+    losses = [m["loss"] for m in log]
+    step_s = float(np.median([m["seconds"] for m in log[TRAIN_TIMED]]))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = model_flops_estimate(cfg, ShapeSpec("launch", TRAIN_SEQ,
+                                                TRAIN_BATCH, "train"))
+    t0 = time.perf_counter()
+    batch = to_device(trainer.data.batch_at(0), dev)
+    g1 = _grads_of(model, cfg, batch)
+    g2 = _grads_of(model, cfg, batch)
+    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    probe = {"tensors": len(g1), "differ": len(differ),
+             "max_abs_diff": max((float((g1[n] - g2[n]).abs().max())
+                                  for n in differ), default=0.0),
+             "first_differing": differ[:4],
+             "wall_s": time.perf_counter() - t0}
+    del g1, g2
+    res = {
+        "arch": cfg.name, "layers": cfg.n_layers, "compute": cfg.compute_dtype,
+        "params": cfg.n_params(), "seq_len": TRAIN_SEQ, "batch": TRAIN_BATCH,
+        "steps": len(log), "plan": {
+            "remat": mp.knobs.remat, "microbatches": out["microbatches"],
+            "use_kernels": cfg.use_kernels,
+            "estimate_gib": mp.estimate.total_bytes / 2**30,
+            "bound": mp.estimate.bound()},
+        "losses": losses, "loss_drop": 1 - losses[-1] / losses[0],
+        "step_seconds": [m["seconds"] for m in log],
+        "ms_per_step": step_s * 1e3, "timed_steps": "3-12 (median)",
+        "tokens_per_s": tokens / step_s,
+        "model_flops_per_step": flops,
+        "model_flops_share_of_989_tflops": flops / step_s / PEAK_FLOPS,
+        "peak_device_gib": peak / 2**30,
+        "peak_over_estimate": peak / mp.estimate.total_bytes,
+        "checkpoints": saves, "wall_s": wall,
+        "kernel_launches": dict(zip(("flash_attention", "rglru_scan"),
+                                    counts[:2])),
+        "determinism_probe": probe}
+    res["profile"] = train_profile(trainer, model, opt)
+    emit({"lm_train_main": res})
+    check(counts == (0, 0, 0, 0), f"training launched kernels: {counts}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0] * 0.9,
+          f"loss fell {losses[0]} -> {losses[-1]}, not by 10 %")
+    check(len(saves) == 2 and saves[-1]["step"] == TRAIN_STEPS,
+          f"checkpoints {saves}")
+    del out, trainer, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_train_resume(dev) -> dict:
+    """The Trainer at full width, 4 layers, bf16: RESUME_STEPS steps
+    uninterrupted against a run that fails at step RESUME_FAIL_AT and
+    resumes from its last checkpoint; the final parameters and AdamW
+    state must be equal bit for bit."""
+    cfg = train_config().replace(n_layers=GOLDEN_TRAIN_LAYERS)
+    hp = adamw.AdamWConfig(**GOLDEN_TRAIN_HP)
+    dc = DataConfig(cfg.vocab_size, **GOLDEN_TRAIN_DATA)
+    with tempfile.TemporaryDirectory(prefix=".train_ckpt_", dir=ROOT) as d:
+        def tc(sub, **kw):
+            return TrainConfig(steps=RESUME_STEPS, save_every=RESUME_SAVE_EVERY,
+                               ckpt_dir=f"{d}/{sub}", **kw)
+        t0 = time.perf_counter()
+        a = Trainer(cfg, hp, tc("a"), dc, dev).run()
+        failed = ""
+        try:
+            Trainer(cfg, hp, tc("b", fail_at_step=RESUME_FAIL_AT), dc,
+                    dev).run()
+        except RuntimeError as e:
+            failed = str(e)
+        resumed_from = checkpoint.latest_step(f"{d}/b")
+        b = Trainer(cfg, hp, tc("b"), dc, dev).run()
+        wall = time.perf_counter() - t0
+    pa = dict(a["model"].named_parameters())
+    pb = dict(b["model"].named_parameters())
+    pairs = [(f"params/{n}", pa[n], pb[n]) for n in pa]
+    for key in ("m", "v"):
+        pairs += [(f"opt/{key}/{n}", getattr(a["opt"], key)[n],
+                   getattr(b["opt"], key)[n]) for n in pa]
+    differ = [(k, float((x.float() - y.float()).abs().max()))
+              for k, x, y in pairs if not torch.equal(x, y)]
+    res = {"layers": cfg.n_layers, "compute": cfg.compute_dtype,
+           "steps": RESUME_STEPS, "save_every": RESUME_SAVE_EVERY,
+           "failed_with": failed, "resumed_from": resumed_from,
+           "tensors": len(pairs), "differ": len(differ),
+           "max_abs_diff": max((v for _, v in differ), default=0.0),
+           "first_differing": differ[:4], "wall_s": wall}
+    emit({"lm_train_resume": res})
+    check(failed == f"injected failure at step {RESUME_FAIL_AT}",
+          f"the interrupted run: {failed!r}")
+    check(resumed_from == RESUME_SAVE_EVERY, f"resumed from {resumed_from}")
+    check(int(a["opt"].step) == int(b["opt"].step) == RESUME_STEPS,
+          "AdamW step counts")
+    check(not differ, f"the resumed run differs from the uninterrupted one "
+          f"in {len(differ)} of {len(pairs)} tensors: {differ[:4]}")
+    del a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_train_path(dev) -> dict:
+    """Phase 11 (module doc): the golden run, the launcher's main path,
+    the resume check."""
+    t0 = time.perf_counter()
+    golden = lm_train_golden(dev)
+    main_res = lm_train_main(dev)
+    resume = lm_train_resume(dev)
+    return {"golden": golden, "main": main_res, "resume": resume,
+            "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
-            or not GOLDEN_LM.is_file():
+            or not GOLDEN_LM.is_file() or not GOLDEN_TRAIN.is_file():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               "(no src/repro_torch beside this script)", file=sys.stderr)
         return 1
@@ -2497,6 +2875,8 @@ def main() -> int:
     check(ring_launches == rglru_launches,
           f"rglru_scan: {ring_launches} of {rglru_launches} launches of the "
           "LM path on the ring route")
+    train = lm_train_path(dev)
+    emit({"lm_train_path": {"wall_s": train["wall_s"]}})
 
     emit({"kernels": [
         {"name": "pe_execute", "route": "cuda",

@@ -16,7 +16,9 @@ The language models' state is their parameter tree:
 ``params_from_reference`` fills the port's modules from a tree in the
 reference's layout (nested dicts of arrays, each layer group stacked),
 such as ``repro.models.schema.init_params`` gives or
-``models.schema.init_numpy`` makes from a seed.
+``models.schema.init_numpy`` makes from a seed; a tree of gradients maps
+the same way. ``opt_state_from_reference`` carries AdamW's moments and
+step across.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.ggpu.engine.config import GGPUConfig, ScalarConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
 from repro_torch.models.schema import init_numpy, layer_groups
+from repro_torch.optim.adamw import AdamWState
 
 
 def load_tree(module, tree, rep=None) -> None:
@@ -100,6 +103,21 @@ def params_from_reference(tree, cfg: ModelConfig, device=None) -> LM:
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     """The port's model with the weights ``init_numpy(cfg, seed)`` makes."""
     return params_from_reference(init_numpy(cfg, seed), cfg, device)
+
+
+def opt_state_from_reference(m, v, step, cfg: ModelConfig,
+                             device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the reference's ``AdamWState``
+    fields: the moment trees ``m`` and ``v`` (the parameters' layout)
+    keyed by the port's parameter names, and ``step``."""
+    def moments(tree):
+        return {n: p.detach() for n, p in
+                params_from_reference(tree, cfg, device).named_parameters()}
+    mm = moments(m)
+    dev = next(iter(mm.values())).device
+    return AdamWState(mm, moments(v), torch.tensor(int(np.asarray(step)),
+                                                   dtype=torch.int32,
+                                                   device=dev))
 
 
 def config_from_reference(fields: dict, scalar: bool = False) -> GGPUConfig:

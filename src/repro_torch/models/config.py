@@ -1,14 +1,18 @@
-"""Model configuration schema (the port's copy of ``repro.models.config``).
+"""Model and input-shape configuration (the port's copy of
+``repro.models.config``).
 
 Configs are frozen dataclasses with the reference's fields and defaults,
 less the fields of paths the port does not run yet (MoE, M-RoPE, the
-GELU MLP, LayerNorm, the modality frontends, the stacked-layer switch and
-the training and JAX chunking knobs): the ported config files copy over
-verbatim, and a config that needs one of those paths cannot be built.
-``use_pallas`` becomes ``use_kernels``, on by default: prefill attention
-and the RG-LRU scan go through the port's hand-written CUDA kernels (their
-plain versions for CPU tensors); False runs the plain PyTorch path on
-whatever device the model lives on.
+GELU MLP, LayerNorm, the modality frontends, the mLSTM chunk): the ported
+config files copy over verbatim, and a config that needs one of those
+paths cannot be built. ``use_pallas`` becomes ``use_kernels``, on by
+default: prefill attention and the RG-LRU scan go through the port's
+hand-written CUDA kernels (their plain versions for CPU tensors); False
+runs the plain PyTorch path on whatever device the model lives on, and
+is what training runs (the kernels have no backward).
+
+``ShapeSpec``, ``SHAPES`` and ``cell_supported`` are the reference's
+input shapes, which MeshPlanner plans for.
 """
 from __future__ import annotations
 
@@ -53,12 +57,29 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
-    # --- runtime knobs ---
+    # --- runtime knobs (overridable by the MeshPlanner) ---
+    remat: str = "full"            # none | dots | full | group:k
+    scan_layers: bool = True       # XLA's stacked-layer switch: no effect
     use_kernels: bool = True       # the hand-written CUDA kernels
+    attn_q_chunk: int = 512        # blocked attention's q and kv tiles
+    attn_kv_chunk: int = 1024
 
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode state is bounded (window, recurrence)."""
+        kinds = set(self.pattern_unit)
+        if kinds & {"mlstm", "slstm", "rglru"}:
+            # fine unless some layer is *full* attention
+            return "attn" not in kinds or self.window > 0
+        return self.window > 0 or all(k in ("swa", "local") for k in kinds)
 
     @property
     def lru_d(self) -> int:
@@ -78,3 +99,33 @@ class ModelConfig:
         """Analytic parameter count (matches the schema)."""
         from repro_torch.models.schema import count_params
         return count_params(self)
+
+    def n_active_params(self) -> int:
+        """Params touched per token: all of them (the port has no MoE)."""
+        return self.n_params()
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeSpec("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeSpec("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell is runnable; reason if not."""
+    if shape.kind == "decode" and cfg.is_encoder_only:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 500k decode needs "
+                       "sub-quadratic attention")
+    return True, ""

@@ -1,12 +1,13 @@
 """Shared layer math (the port's ``repro.models.layers``): norms, linear
-layers, the MLP, rotary embeddings, embedding and unembedding.
+layers, the MLP, rotary embeddings, embedding, unembedding and the loss.
 
 Parameters live in ``nn.Module`` containers whose leaves keep the
 reference's names (``norm.scale``, ``wq.w``, ``wi.b``, ...). They are
 stored in ``cfg.param_dtype`` (float32) and cast to ``cfg.compute_dtype``
 where they are used, as the reference does. The functions mirror the
 reference's, one for one, and take the modules in place of its dict
-subtrees. Serving only: parameters take no gradient.
+subtrees. Parameters are made without gradients, for serving; a trainer
+turns them on (``model.requires_grad_()``).
 """
 from __future__ import annotations
 
@@ -112,11 +113,14 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# embedding / unembedding
+# embedding / unembedding / loss
 # ---------------------------------------------------------------------------
 
 def embed_tokens(p: Embed, tokens, cfg: ModelConfig):
-    return p.w[tokens].to(cdt(cfg))
+    """The rows of ``p.w``. ``F.embedding``, not ``p.w[tokens]``: the
+    latter's backward (``index_put_`` accumulating) adds repeated tokens'
+    rows with atomics on the CPU, in an order that changes run to run."""
+    return F.embedding(tokens.long(), p.w).to(cdt(cfg))
 
 
 def unembed(model, x, cfg: ModelConfig):
@@ -124,3 +128,14 @@ def unembed(model, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return x @ model.embed.w.to(cdt(cfg)).T
     return linear(model.lm_head, x, cfg)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token CE in f32. logits: (..., V), labels: (...) integer."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -4,8 +4,9 @@ entry points, patches, a Scheduler drain, a DSE Evaluator, a Fleet and a
 fault scenario, a compiled kernel's verify, an autotune and a kernel
 graph's drain) against its CPU path; ``flash_attention`` and ``rglru_scan`` against ``attention_ref`` and
 ``rglru_scan_ref`` within the tolerances of ``tests/test_kernels.py``, and
-the LM's kernel path against its plain path. Needs an NVIDIA card
-(sm_90a) and nvcc; skipped without a card.
+the LM's kernel path against its plain path; one train step on the card
+against the CPU and a checkpoint restored onto the card. Needs an NVIDIA
+card (sm_90a) and nvcc; skipped without a card.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -492,3 +493,68 @@ def test_lm_kernel_path_equals_plain_path_on_card(cuda, exact_matmul, arch):
                for n in (30, 5, 17)]
     assert Engine(cfg, model, EngineConfig(slots=2)).generate(prompts, 6) \
         == Engine(plain, model, EngineConfig(slots=2)).generate(prompts, 6)
+
+
+# -- training -----------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-2b"])
+def test_train_step_on_card_equals_cpu(cuda, exact_matmul, arch):
+    """One AdamW step of the SMOKE model at f32 (2 microbatches) on the
+    card against the same step on the CPU: loss and grad_norm within 1e-5
+    relative and every gradient within 1e-5 of its tensor's largest |g|
+    (f32 sums in cuBLAS's order and the CPU's); the params within 1e-2 x
+    lr wherever |g| >= 1e-6 (the first step moves an element by
+    lr * g / (|g| + eps), which rounding in g can change by a good part of
+    lr only where |g| is near eps = 1e-8), and within 2 x lr everywhere.
+    No kernel launches: training runs the plain attention and scan."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import init_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = get_smoke(arch).replace(compute_dtype="float32", use_kernels=False,
+                                  remat="dots")
+    hp = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    g = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(
+        g.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32))}
+    out = {}
+    before = (fa.LAUNCHES, rg.LAUNCHES)
+    for dev in ("cpu", cuda):
+        model = init_model(cfg, 2, dev)
+        model.requires_grad_(True)
+        opt = adamw.init(dict(model.named_parameters()))
+        m = make_train_step(cfg, hp, microbatches=2)(
+            model, opt, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = ({k: float(v) for k, v in m.items()},
+                         {n: (p.detach().cpu(), p.grad.cpu() / 2)
+                          for n, p in model.named_parameters()})
+    assert (fa.LAUNCHES, rg.LAUNCHES) == before
+    (mc, pc), (mg, pg) = out["cpu"], out[str(cuda)]
+    for k in mc:
+        assert mg[k] == pytest.approx(mc[k], rel=1e-5), k
+    for name, (p, grad) in pc.items():
+        p_card, grad_card = pg[name]
+        torch.testing.assert_close(grad_card, grad, rtol=0,
+                                   atol=1e-5 * float(grad.abs().max()))
+        big = grad.abs() >= 1e-6
+        torch.testing.assert_close(p_card[big], p[big], rtol=0,
+                                   atol=1e-2 * hp.lr)
+        torch.testing.assert_close(p_card, p, rtol=0, atol=2 * hp.lr)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """Saved from the CPU, restored onto the card bit for bit (f32,
+    bf16 and the int32 step)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(3, 5, generator=gen),
+              "h": torch.randn(7, generator=gen).to(torch.bfloat16)}
+    opt = adamw.init(params)
+    opt.step.fill_(3)
+    checkpoint.save(tmp_path, 3, params, opt)
+    p2, o2, _ = checkpoint.restore(tmp_path, 3)
+    assert p2["w"].device.type == "cuda"
+    for k, t in params.items():
+        assert p2[k].dtype == t.dtype and torch.equal(p2[k].cpu(), t)
+    assert o2["step"].device.type == "cuda" and int(o2["step"]) == 3

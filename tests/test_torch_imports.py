@@ -29,7 +29,13 @@ def test_port_imports_no_jax_and_no_reference_module():
     for name in ("repro_torch.ggpu.engine.stepper", "repro_torch.serve.llm",
                  "repro_torch.models.model", "repro_torch.kernels.ops",
                  "repro_torch.kernels.flash_attention",
-                 "repro_torch.kernels.rglru_scan"):
+                 "repro_torch.kernels.rglru_scan",
+                 "repro_torch.optim.adamw", "repro_torch.optim.compress",
+                 "repro_torch.data.pipeline", "repro_torch.train.trainer",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.core.meshplanner",
+                 "repro_torch.roofline.analysis",
+                 "repro_torch.launch.train"):
         assert name in mods
     # the kernel wrapper first: it must import on its own (no cycle)
     mods.remove("repro_torch.kernels.pe_simd")
