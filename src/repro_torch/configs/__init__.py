@@ -8,6 +8,11 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "granite-8b": "granite_8b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
     "smollm-360m": "smollm_360m",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }

@@ -2,10 +2,13 @@
 ``repro.models.config``).
 
 Configs are frozen dataclasses with the reference's fields and defaults,
-less the fields of paths the port does not run yet (MoE, M-RoPE, the
-GELU MLP, LayerNorm, the modality frontends, the mLSTM chunk): the ported
+less the fields of paths the port does not run yet (M-RoPE, the GELU
+MLP, LayerNorm, the modality frontends, the mLSTM chunk): the ported
 config files copy over verbatim, and a config that needs one of those
-paths cannot be built. ``use_pallas`` becomes ``use_kernels``, on by
+paths cannot be built. The MoE fields (``n_experts``, ``topk``,
+``capacity_factor``, ``router_aux_coef``) are the reference's, with its
+defaults; ``n_experts`` > 0 puts ``models.moe`` in place of each
+attention layer's MLP. ``use_pallas`` becomes ``use_kernels``, on by
 default: prefill attention and the RG-LRU scan go through the port's
 hand-written CUDA kernels (their plain versions for CPU tensors); False
 runs the plain PyTorch path on whatever device the model lives on, and
@@ -38,6 +41,12 @@ class ModelConfig:
     window: int = 0                # 0 = full attention; >0 = sliding window
     causal: bool = True
     rope_theta: float = 10_000.0
+
+    # --- MoE options ---
+    n_experts: int = 0
+    topk: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
     # --- layer pattern ---
     # Unit of block kinds repeated down the stack; remainder handled
@@ -101,8 +110,18 @@ class ModelConfig:
         return count_params(self)
 
     def n_active_params(self) -> int:
-        """Params touched per token: all of them (the port has no MoE)."""
-        return self.n_params()
+        """Params touched per token (MoE: only topk experts active)."""
+        total = self.n_params()
+        if self.n_experts and self.topk:
+            # expert FFN params per layer: 3*d*ff each (fused gate|up = 2,
+            # down = 1); the MoE layers are counted by attention kinds, as
+            # the reference counts them
+            n_moe_layers = sum(1 for k in self.pattern()
+                               if k in ("attn", "swa", "local"))
+            inactive = (self.n_experts - self.topk) * 3 * self.d_model \
+                * self.d_ff
+            return total - inactive * n_moe_layers
+        return total
 
 
 @dataclass(frozen=True)

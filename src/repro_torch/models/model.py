@@ -8,6 +8,11 @@ runs them as a Python loop. Caches are a list with one entry per layer in
 place of the reference's stacked ``repeats`` dim: a ``KVCache`` for an
 attention layer, an ``RGLRUState`` for an RG-LRU layer.
 
+An attention layer's MLP is the MoE FFN (``models.moe``) when
+``cfg.n_experts`` is set; its load-balancing loss, summed over the
+layers, is the third value ``forward`` returns (0 without MoE), and
+``loss_fn`` adds it to the LM loss, as the reference does.
+
 Training (``mode="train"``, ``loss_fn``) runs each pattern unit of
 layers under ``cfg.remat``: ``none``; ``full``, one non-reentrant
 checkpoint per unit (``jax.checkpoint`` with nothing saveable); ``dots``,
@@ -35,12 +40,14 @@ from repro_torch.models.attention import AttnMixer, KVCache, attn_block, \
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Linear, Norm, apply_mlp, \
     apply_norm, cdt, cross_entropy, embed_tokens, unembed
+from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.schema import ATTN_KINDS, check_ported, layer_groups
 
 
 class Block(nn.Module):
     """One layer: ``mixer`` and, for attention kinds with d_ff > 0,
-    ``mlp`` (RG-LRU blocks carry no MLP, as in the reference)."""
+    ``mlp``: the SwiGLU MLP, or the MoE FFN when ``cfg.n_experts`` is set
+    (RG-LRU blocks carry no MLP, as in the reference)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device):
         super().__init__()
@@ -49,8 +56,10 @@ class Block(nn.Module):
             self.mixer = rec.RGLRUMixer(cfg, device)
         else:
             self.mixer = AttnMixer(cfg, device)
-        self.mlp = (MLP(cfg, device)
-                    if cfg.d_ff > 0 and kind in ATTN_KINDS else None)
+        self.mlp = None
+        if cfg.d_ff > 0 and kind in ATTN_KINDS:
+            self.mlp = (MoE(cfg, device) if cfg.n_experts
+                        else MLP(cfg, device))
 
 
 class LM(nn.Module):
@@ -124,7 +133,8 @@ def _prefill_attn_cache(cfg: ModelConfig, kind: str, kv: KVCache,
 
 def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
                  cache_pos, mode: str, prefill_pad: int = 0):
-    """One layer. Returns (x, new_cache)."""
+    """One layer. Returns (x, new_cache, aux): aux is the MoE FFN's
+    load-balancing loss, a 0-dim f32 zero without one."""
     if block.kind == "rglru":
         out, c_new = rec.rglru_block(block.mixer, x, cfg, cache)
     else:
@@ -134,9 +144,13 @@ def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
         if mode == "prefill":
             c_new = _prefill_attn_cache(cfg, block.kind, c_new, prefill_pad)
     x = x + out
-    if block.mlp is not None:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if isinstance(block.mlp, MoE):
+        mo, aux = apply_moe(block.mlp, x, cfg)
+        x = x + mo
+    elif block.mlp is not None:
         x = x + apply_mlp(block.mlp, x, cfg)
-    return x, c_new
+    return x, c_new, aux
 
 
 # The matrix products a ``dots`` checkpoint keeps: every projection of a
@@ -178,13 +192,17 @@ def _group_k(cfg: ModelConfig) -> int:
 
 def _train_stack(model: LM, cfg: ModelConfig, x, positions):
     """The layer stack in train mode, unit by unit under ``cfg.remat``
-    (the reference's scan over each group's repeats)."""
-    def unit_body(x, blocks):
+    (the reference's scan over each group's repeats). Returns (x, the
+    layers' summed aux), the aux carried through every checkpoint as the
+    reference carries it through its scans."""
+    def unit_body(x, aux, blocks):
         for block in blocks:
-            x, _ = _apply_block(block, x, cfg, None, positions, None,
-                                "train")
-        return x
+            x, _, a = _apply_block(block, x, cfg, None, positions, None,
+                                   "train")
+            aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     start = 0
     for unit, reps in layer_groups(cfg):
         n = len(unit)
@@ -198,27 +216,28 @@ def _train_stack(model: LM, cfg: ModelConfig, x, positions):
             # time, each under its own checkpoint
             inner = _checkpointed(unit_body)
 
-            def group_body(x, group):
+            def group_body(x, aux, group):
                 for blocks in group:
-                    x = inner(x, blocks)
-                return x
+                    x, aux = inner(x, aux, blocks)
+                return x, aux
             outer = _checkpointed(group_body)
             for j in range(0, reps, k):
-                x = outer(x, units[j:j + k])
+                x, aux = outer(x, aux, units[j:j + k])
         else:
             body = _remat(unit_body, cfg)
             for blocks in units:
-                x = body(x, blocks)
-    return x
+                x, aux = body(x, aux, blocks)
+    return x, aux
 
 
 def forward(model: LM, cfg: ModelConfig, *, tokens, positions=None,
             cache: Optional[List] = None, cache_pos: Optional[int] = None,
             mode: str = "prefill", prefill_pad: int = 0):
-    """Run the stack. Returns (x_final, new_cache).
+    """Run the stack. Returns (x_final, new_cache, aux_loss).
 
     mode: train (no caches; ``new_cache`` is None) | prefill (produce
-    caches) | decode (consume them).
+    caches) | decode (consume them). ``aux_loss`` is the MoE layers'
+    summed load-balancing loss (a 0-dim f32 zero without MoE).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode={mode!r}")
@@ -235,16 +254,18 @@ def forward(model: LM, cfg: ModelConfig, *, tokens, positions=None,
             base = base + cache_pos
         positions = base.expand(x.shape[0], -1)
     if mode == "train":
-        x = _train_stack(model, cfg, x, positions)
-        return apply_norm(model.final_norm, x, cfg), None
+        x, aux = _train_stack(model, cfg, x, positions)
+        return apply_norm(model.final_norm, x, cfg), None, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = []
     for li, block in enumerate(model.layers):
         ci = cache[li] if cache is not None else None
-        x, c_new = _apply_block(block, x, cfg, ci, positions, cache_pos,
-                                mode, prefill_pad)
+        x, c_new, a = _apply_block(block, x, cfg, ci, positions, cache_pos,
+                                   mode, prefill_pad)
+        aux = aux + a
         new_cache.append(c_new)
     x = apply_norm(model.final_norm, x, cfg)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -287,9 +308,9 @@ def loss_fn(model: LM, cfg: ModelConfig, batch):
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         if positions is not None:
             positions = positions[..., :-1]
-    x, _ = forward(model, cfg, tokens=inputs, positions=positions,
-                   mode="train")
-    return chunked_lm_loss(model, cfg, x, labels)
+    x, _, aux = forward(model, cfg, tokens=inputs, positions=positions,
+                        mode="train")
+    return chunked_lm_loss(model, cfg, x, labels) + aux
 
 
 def decay_ndims(model: LM) -> dict:
@@ -297,7 +318,8 @@ def decay_ndims(model: LM) -> dict:
     stores each layer group stacked, with a leading repeats dim, and
     decays every leaf of ndim >= 2 (``optim/adamw.py:80``): a layer's 1-D
     tensors (norm scales, biases, Λ) count one dim more there and are
-    decayed. The port mirrors that; only top-level 1-D tensors escape."""
+    decayed (the MoE FFN's norm among them). The port mirrors that; only
+    top-level 1-D tensors escape."""
     return {name: p.ndim + name.startswith("layers.")
             for name, p in model.named_parameters()}
 
@@ -305,14 +327,14 @@ def decay_ndims(model: LM) -> dict:
 def prefill(model: LM, cfg: ModelConfig, *, tokens, positions=None,
             pad_to: int = 0):
     """Returns (last_token_logits (B, V), cache)."""
-    x, cache = forward(model, cfg, tokens=tokens, positions=positions,
-                       mode="prefill", prefill_pad=pad_to)
+    x, cache, _ = forward(model, cfg, tokens=tokens, positions=positions,
+                          mode="prefill", prefill_pad=pad_to)
     return lm_logits(model, cfg, x[:, -1:, :])[:, 0, :], cache
 
 
 def decode_step(model: LM, cfg: ModelConfig, cache, token, pos: int):
     """One decode step. token: (B, 1) int; pos: the write slot. Returns
     (logits (B, V), new_cache)."""
-    x, new_cache = forward(model, cfg, tokens=token, cache=cache,
-                           cache_pos=pos, mode="decode")
+    x, new_cache, _ = forward(model, cfg, tokens=token, cache=cache,
+                              cache_pos=pos, mode="decode")
     return lm_logits(model, cfg, x)[:, 0, :], new_cache

@@ -10,10 +10,11 @@ leaves, in the reference's layout: each repeated layer group is stored
                         downloaded); ``convert.params_from_reference``
                         turns it into the port's modules.
 
-Ported: attn / swa / local blocks (with their SwiGLU MLP) and rglru
-blocks (no MLP, as in the reference), RMSNorm. mLSTM, sLSTM, MoE, M-RoPE,
-the modality frontends, the GELU MLP and LayerNorm (HuBERT's) are not
-ported yet (ROADMAP.md, "Next slices").
+Ported: attn / swa / local blocks (with their SwiGLU MLP, or the MoE
+FFN when ``cfg.n_experts`` is set) and rglru blocks (no MLP, as in the
+reference), RMSNorm. mLSTM, sLSTM, M-RoPE, the modality frontends, the
+GELU MLP and LayerNorm (HuBERT's) are not ported yet (ROADMAP.md, "Next
+slices").
 """
 from __future__ import annotations
 
@@ -69,6 +70,14 @@ def _mlp_schema(cfg: ModelConfig) -> Dict:
             "wo": _dense(ff, d)}
 
 
+def _moe_schema(cfg: ModelConfig) -> Dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"norm": _norm(d),
+            "router": {"w": ParamSpec((d, e), "normal", 1.0 / math.sqrt(d))},
+            "wi": ParamSpec((e, d, 2 * ff), "normal", 1.0 / math.sqrt(d)),
+            "wo": ParamSpec((e, ff, d), "normal", 1.0 / math.sqrt(ff))}
+
+
 def _rglru_schema(cfg: ModelConfig) -> Dict:
     """Griffin recurrent block: x -> [conv4 -> RG-LRU] * gelu(gate) -> out."""
     d, dr = cfg.d_model, cfg.lru_d
@@ -94,15 +103,15 @@ def check_ported(cfg: ModelConfig) -> None:
                if k not in ATTN_KINDS + ("rglru",)]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing} are not ported yet "
-            "(ROADMAP.md, next slices)")
+            f"{cfg.name}: block kinds {missing} are not ported yet: the "
+            "xLSTM slice (mLSTM/sLSTM) is next (ROADMAP.md, next slices)")
 
 
 def _block_schema(cfg: ModelConfig, kind: str) -> Dict:
     s = {"mixer": _rglru_schema(cfg) if kind == "rglru"
          else _attn_schema(cfg)}
     if cfg.d_ff > 0 and kind in ATTN_KINDS:
-        s["mlp"] = _mlp_schema(cfg)
+        s["mlp"] = _moe_schema(cfg) if cfg.n_experts else _mlp_schema(cfg)
     return s
 
 

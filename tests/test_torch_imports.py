@@ -35,7 +35,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.train.checkpoint",
                  "repro_torch.core.meshplanner",
                  "repro_torch.roofline.analysis",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.models.moe",
+                 "repro_torch.configs.mixtral_8x7b",
+                 "repro_torch.configs.llama4_scout_17b_a16e",
+                 "repro_torch.configs.granite_8b",
+                 "repro_torch.configs.qwen1_5_0_5b",
+                 "repro_torch.configs.qwen1_5_4b"):
         assert name in mods
     # the kernel wrapper first: it must import on its own (no cycle)
     mods.remove("repro_torch.kernels.pe_simd")

@@ -1,7 +1,9 @@
 """The port's serving path against the JAX package's, on the CPU:
 ``Engine.generate`` (prefill + greedy decode, slot waves) on the
 RecurrentGemma and SmolLM SMOKE configs, weights carried across by
-``convert.params_from_reference``. Prompts are longer and shorter than
+``convert.params_from_reference``, and on the SMOKE configs of the MoE
+family (Mixtral, with its window, and Llama-4-Scout) and the dense
+Granite and Qwen1.5 ones (QKV bias). Prompts are longer and shorter than
 the SMOKE window of 16 and come in two waves, so the window cache takes
 both of its branches and ring decode crosses the wrap.
 
@@ -24,7 +26,7 @@ from repro.models import model as JM
 from repro.models.schema import init_params
 from repro.serve.llm import Engine as JaxEngine
 from repro.serve.llm import EngineConfig as JaxEngineConfig
-from repro_torch.configs import get_smoke
+from repro_torch.configs import ARCH_IDS, get_smoke
 from repro_torch.convert import init_model, params_from_reference
 from repro_torch.models import model as M
 from repro_torch.models.schema import init_numpy
@@ -78,7 +80,10 @@ def _recorded(engine, prompts, max_new):
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m",
+                                  "mixtral-8x7b", "llama4-scout-17b-a16e",
+                                  "granite-8b", "qwen1.5-0.5b",
+                                  "qwen1.5-4b"])
 def test_generate_matches_the_reference_engine(arch, use_kernels):
     """``use_kernels`` on the port, ``use_pallas`` on the reference: the
     logits of every prefill and decode step agree, and so do the tokens."""
@@ -168,7 +173,7 @@ def test_plan_waves_is_the_reference_planner():
 def test_configs_are_the_reference_configs():
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
-    for arch in ("recurrentgemma-2b", "smollm-360m"):
+    for arch in ARCH_IDS:
         for ours, theirs in ((get_config(arch), jax_config(arch)),
                              (get_smoke(arch), jax_smoke(arch))):
             a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)

@@ -81,7 +81,12 @@ def test_apply_norm():
 def test_unported_options_raise(field, value):
     """An unported block kind is refused naming ROADMAP; the options of
     the other unported paths are no fields of the port's config, so a
-    config that sets one cannot be built."""
+    config that sets one cannot be built. MoE is ported: its options are
+    fields, and a config that sets them builds a model with MoE layers."""
+    if field == "n_experts":
+        model = M.LM(CFG.replace(n_experts=value, topk=2), "cpu")
+        assert any(type(b.mlp).__name__ == "MoE" for b in model.layers)
+        return
     if field != "pattern_unit":
         with pytest.raises(TypeError, match=field):
             CFG.replace(**{field: value})
