@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one NVIDIA card: the G-GPU simulator's
-main path, the RecurrentGemma-2B serving path, SmolLM-360M training and
-the MoE family's serving path (Mixtral-8x7B, Llama-4-Scout) with
-Qwen1.5-0.5B.
+main path, the RecurrentGemma-2B serving path, SmolLM-360M training, the
+MoE family's serving path (Mixtral-8x7B, Llama-4-Scout) with
+Qwen1.5-0.5B, and xLSTM-350M, HuBERT-XLarge's encode and Qwen2-VL-72B's
+vision prefill.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,9 @@ Phases, each fatal on any mismatch:
      16 bytes; flash_attention (bf16 on its
      tensor-core route, f32 on its SIMT route) against attention_ref at
      RecurrentGemma-2B's prefill shape, Mixtral-8x7B's (4 x 6,144 tokens,
-     hd 128, GQA 4, window 4,096), the SmolLM-360M shape, the shapes
+     hd 128, GQA 4, window 4,096), HuBERT-XLarge's encode (4 x 1,500
+     frames, hd 80, bidirectional), Qwen2-VL-72B's vision prefill (2 x
+     4,096 patches, hd 128, GQA 8, causal), the SmolLM-360M shape, the shapes
      of tests/test_kernels.py and the tensor-core route's edges (max |err|
      2e-5 f32, 2e-2 bf16; per query row over its largest |o| 1e-5 f32,
      1e-2 bf16), and a planted fault, the window one key short, must fail
@@ -47,8 +50,9 @@ Phases, each fatal on any mismatch:
      batch of slice / nothing / full image) against the golden file, and
      a BlockPatch and an XorBlockPatch chain against the same chain
      staged through the host (the producers' memory unchanged); one
-     Scheduler drain (max_inflight 8) of every 8-CU shared bench twice,
-     the golden image against the golden file and a seeded variant,
+     Scheduler drain (max_inflight 8) of every 8-CU shared bench but
+     xcorr and parallel_sel (DRAIN_BENCHES) twice, the golden image
+     against the golden file and a seeded variant,
      checksum-audited, against the numpy reference and the golden
      file's stats (the JAX package's run of the same variant); the serve
      benchmark's throughput traffic (vec_mul(32, 512) on 2 CUs, 8 bursts of 16
@@ -76,8 +80,7 @@ Phases, each fatal on any mismatch:
      benchmarks/baselines/BENCH_resilience.json and the benchmark's
      invariants (hedged p99 below unhedged among them); the registry's
      selfcheck and smoke (every bench, memsys, policy, router, traffic
-     pattern and fault scenario) and one cross-product cell under SEU
-     injection, with no problem;
+     pattern and fault scenario), with no problem;
   8. compiler and kernel graphs: the compiler benchmark's fast sections
      through repro_torch.compiler on 2 CUs — the eight compiled benches
      and their hand twins through run_kernel (cycles, bit-exactness,
@@ -148,7 +151,32 @@ Phases, each fatal on any mismatch:
      without its rounding to 4 is reported; a short profile; then
      llama4-scout-17b-a16e at full width cut to 1 layer and the whole
      qwen1.5-0.5b (QKV bias), one wave each, against their plain paths
-     with a planted fault each.
+     with a planted fault each;
+  13. the last three families (lm_families_path), each at its published
+     widths, numpy-seeded weights: xlstm-350m, all 24 layers, f32,
+     Engine.generate of one wave of four prompts (512 to 9 tokens), 16
+     greedy tokens, every step's top-8 logits and the tokens against
+     src/repro_torch/models/golden_xlstm.json, three planted faults (the
+     mLSTM's carried stabiliser taken as 0, its chunk-end memory
+     undecayed, a sigmoid sLSTM forget gate) beyond the limit, a prefill
+     decoded onward against one pass over the whole sequence and the
+     mLSTM's chunked scan against its recurrent form (a chunk-end memory
+     1e-3 high beyond its limit); then all 24 layers
+     in bf16 on a wave up to 2,048 tokens, timed, with a profile (no
+     kernel: the mLSTM and sLSTM are torch operations, as the reference's
+     are plain XLA); hubert-xlarge at 2 of its 48 layers, f32, encode of
+     (2, 400) frames through flash_attention against golden_hubert.json,
+     three faults (a causal mask, LayerNorm without its mean, wo without
+     its bias) beyond; all 48 layers in bf16 on (4, 1,500, 512) frames
+     through flash_attention against the plain path, timed, profiled;
+     qwen2-vl-72b at 1 of its 80 layers, f32, a vision prefill of 2 x
+     256 patches at their (t, h, w) positions with 8 decode steps and
+     Engine.generate of two token prompts against golden_qwen2_vl.json,
+     three M-RoPE faults (h and w swapped, plain RoPE over t, sections
+     rotated) beyond on the vision prefill; 4 of its 80 layers in bf16, a
+     vision prefill of 2 x 4,096 patches and 8 decode steps through
+     flash_attention, timed, and Engine.generate of four prompts (2,048
+     to 45 tokens), each against the plain path.
 
 Matrix products run in full precision wherever the port is compared with
 a reference (no TF32, no reduced-precision bf16 reductions).
@@ -159,6 +187,7 @@ a CUDA device or without the repository's src/ beside it.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import json
@@ -180,7 +209,7 @@ import torch  # noqa: E402
 from repro_torch import compiler  # noqa: E402
 from repro_torch.compiler import suite  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import init_model  # noqa: E402
+from repro_torch.convert import init_model, params_from_reference  # noqa
 from repro_torch.ggpu import isa, programs  # noqa: E402
 from repro_torch import dse  # noqa: E402
 from repro_torch.ggpu.engine import (BlockPatch, GGPUConfig,  # noqa: E402
@@ -198,8 +227,12 @@ from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
                                        to_device)
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import attention as MA  # noqa: E402
+from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import recurrent as rec  # noqa: E402
+from repro_torch.models.schema import init_numpy  # noqa: E402
 from repro_torch.models.config import ShapeSpec  # noqa: E402
 from repro_torch.models.steps import make_train_step  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -267,6 +300,11 @@ VARIANT_RUNS = tuple(Run(f"8cu/shared/{n}/variant", n, "gpu", {"n_cus": 8},
                          seed=VARIANT_SEED + k)
                      for k, n in enumerate(programs.LEGACY_ORDER))
 VARIANTS = {r.bench: r for r in VARIANT_RUNS}
+# the drain's benches: xcorr's and parallel_sel's golden and variant
+# images (cohorts of 2, ~41k and ~15k rounds) are left out to keep the
+# script within its limit (REDUCED)
+DRAIN_BENCHES = tuple(n for n in programs.LEGACY_ORDER
+                      if n not in ("xcorr", "parallel_sel"))
 GOLDEN_RUNS = ALL_RUNS + VARIANT_RUNS    # every launch golden_runs.json has
 # The DSE sweep: the CI smoke grid (benchmarks/baselines/BENCH_dse.json)
 # and the nightly grid's full axes, both on xcorr at (16, 128).
@@ -293,7 +331,21 @@ REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
            "MoE main path: mixtral-8x7b n_layers 32 -> 4 (6.07 B "
            "parameters, 24.3 GB in f32 on the card); full width",
            "llama4-scout-17b-a16e n_layers 48 -> 1 (4.15 B parameters); "
-           "full width"]
+           "full width",
+           "the registry's cross-product cell (shared, cohort, "
+           "earliest-finish, seu; ~6.8k rounds), the serving drain's xcorr "
+           "and parallel_sel cohorts (their golden and variant images, "
+           "~41k and ~15k rounds): with phase 13 the script took 1,134.5 s "
+           "of its 1,200 s on one host and 1,365 s on a slower one after "
+           "the first two cuts (PERF.md); xcorr and parallel_sel still run "
+           "on the main path, until rounds are captured in CUDA graphs",
+           "hubert-xlarge golden run: n_layers 48 -> 2 at f32 compute; the "
+           "main path runs all 48; full width",
+           "qwen2-vl-72b golden run: n_layers 80 -> 1 at f32 compute (3.38 "
+           "B parameters), so that the JAX package computes its golden "
+           "file on a CPU; full width",
+           "qwen2-vl-72b main path: n_layers 80 -> 4 (6.01 B parameters, "
+           "24.0 GB in f32 on the card); full width"]
 
 # The LM serving path: RecurrentGemma-2B, numpy-seeded weights, six
 # prompts of seeded token ids in two waves of 4 slots (the first prefills
@@ -750,9 +802,20 @@ FLASH_PATH = (40, 4, 3072, 3072, 256, True, 2048, torch.bfloat16)
 # Mixtral-8x7B's prefill of a 6,144-token wave of 4: 32 q heads, 8 kv
 # heads (GQA 4), hd 128, the 4,096-token window
 FLASH_MOE = (128, 32, 6144, 6144, 128, True, 4096, torch.bfloat16)
+# HuBERT-XLarge's encode of 4 clips of 1,500 frames: 16 heads of hd 80
+# (the tensor-core route pads it to 128), bidirectional; Qwen2-VL-72B's
+# vision prefill of 2 images of 64 x 64 patches: 64 q heads, 8 kv heads
+# (GQA 8), hd 128, causal over all 4,096 positions
+FLASH_HUBERT = (64, 64, 1500, 1500, 80, False, 0, torch.bfloat16)
+FLASH_QWEN_VL = (128, 16, 4096, 4096, 128, True, 0, torch.bfloat16)
+# the shapes timed beside FLASH_PATH: {key: (case, sequences)}
+FLASH_TIMED = {"moe_shape": (FLASH_MOE, 4), "hubert_shape": (FLASH_HUBERT, 4),
+               "qwen2_vl_shape": (FLASH_QWEN_VL, 2)}
 FLASH_CASES = [
     FLASH_PATH,
     FLASH_MOE,
+    FLASH_HUBERT,
+    FLASH_QWEN_VL,
     (60, 20, 2048, 2048, 64, True, 0, torch.bfloat16),
     (4, 2, 256, 256, 64, True, 0, torch.float32),
     (4, 4, 128, 128, 32, False, 0, torch.float32),
@@ -901,11 +964,11 @@ def flash_phase(dev) -> dict:
               "max_row_rel_err": row_errs[next(iter(row_errs))],
               "planted_window_short": {"max_abs_err": fault[0],
                                        "max_row_rel_err": fault[1]}}
-    timing["moe_shape"] = {**_flash_timing(FLASH_MOE, dev, 4),
-                           "shape": list(FLASH_MOE[:7]),
-                           "max_abs_err": errs[_flash_name(FLASH_MOE)],
-                           "max_row_rel_err": row_errs[_flash_name(
-                               FLASH_MOE)]}
+    for key, (case, bsz) in FLASH_TIMED.items():
+        timing[key] = {**_flash_timing(case, dev, bsz),
+                       "shape": list(case[:7]),
+                       "max_abs_err": errs[_flash_name(case)],
+                       "max_row_rel_err": row_errs[_flash_name(case)]}
     emit({"kernel_phase": {"flash_attention": {
         "cases": errs, "row_rel": row_errs,
         "limits": {"f32": [FLASH_ATOL[torch.float32],
@@ -935,9 +998,10 @@ def _flash_timing(case, dev, bsz: int) -> dict:
           == fa.tensor_core_tiles(hd),
           f"flash_attention: the built design {design} differs from "
           f"tensor_core_tiles({hd}) = {fa.tensor_core_tiles(hd)}")
-    # QK once and PV twice (p as two bf16 terms), 2 flops per MAC
-    issued = 6 * hd * bh * issued_pairs(sq, skv, causal, window,
-                                        design["block_q"], design["block_k"])
+    # QK once and PV twice (p as two bf16 terms), 2 flops per MAC, at the
+    # padded head width
+    issued = 6 * design["hd_pad"] * bh * issued_pairs(
+        sq, skv, causal, window, design["block_q"], design["block_k"])
     kernel = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa
                                         window=window)
     plain = lambda: _plain_attention(q, k, v, causal, window)  # noqa: E731
@@ -1134,20 +1198,33 @@ class RoutingLog:
         return out
 
 
+class planted:
+    """While open, each (module, attribute, wrapper) of ``patches`` is
+    planted: the attribute replaced by wrapper(the original)."""
+
+    def __init__(self, patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.origs = [(mod, attr, getattr(mod, attr))
+                      for mod, attr, _ in self.patches]
+        for mod, attr, wrap in self.patches:
+            setattr(mod, attr, wrap(getattr(mod, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self.origs:
+            setattr(mod, attr, orig)
+
+
 def _forced_calls(engine, prompts, ref_calls, max_new: int, fault=None):
     """The calls of ``engine`` fed ``ref_calls``' tokens, with its routing
     (a RoutingLog) for an MoE config; ``fault``: an entry of LM_FAULTS,
     MOE_FAULTS, SCOUT_FAULTS or QWEN_FAULTS to plant for the run."""
-    if fault is not None:
-        _, mod, attr, wrap, _ = fault
-        orig = getattr(mod, attr)
-        setattr(mod, attr, wrap(orig))
-    try:
+    patches = () if fault is None else ((fault[1], fault[2], fault[3]),)
+    with planted(patches):
         return _routed_generate(engine, prompts, max_new,
                                 forced=[c[1] for c in ref_calls])[1]
-    finally:
-        if fault is not None:
-            setattr(mod, attr, orig)
 
 
 def _routed_generate(engine, prompts, max_new: int, forced=None):
@@ -1473,32 +1550,32 @@ def verify_folds(pending, dev) -> None:
                   f"{run.key}: {what} launch != its single run")
 
 
-def _profiled(fn, host: bool = True):
-    """Run ``fn`` once under torch.profiler (tracing host ops too unless
-    ``host`` is False). Returns (the device kernels' events, profiled
-    host wall ms)."""
+def _profiled(fn):
+    """Run ``fn`` once under torch.profiler, tracing device activity only
+    (every reader takes device kernels alone; a host trace costs read-back
+    time). Returns (each device op's (name, ms), profiled host wall ms),
+    read from the raw trace: parsing it into profiler events gives the
+    same ops and costs seconds of host time per 10k kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    activities = [ProfilerActivity.CPU] if host else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    return ([e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA], wall_ms)
+    return ([(e.name(), e.duration_ns() / 1e6)
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA], wall_ms)
 
 
 def _device_ms_of(kernels, match: str = "") -> float:
-    return sum(e.self_device_time_total for e in kernels
-               if match in e.name) / 1e3
+    return sum(ms for name, ms in kernels if match in name)
 
 
 def _top(kernels, n: int = 6) -> dict:
     by_name: dict = {}
-    for e in kernels:
-        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0)
-                                + e.self_device_time_total / 1e3)
+    for name, ms in kernels:
+        by_name[name[:60]] = by_name.get(name[:60], 0) + ms
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
 
 
@@ -1720,15 +1797,15 @@ def patch_chain(benches, dev) -> dict:
 
 
 def serve_drain(benches, golden, dev):
-    """Every 8-CU shared bench twice, its golden image and a seeded
-    variant, through one Scheduler drain with max_inflight 8. The
+    """Every bench of DRAIN_BENCHES on 8 CUs twice, its golden image and
+    a seeded variant, through one Scheduler drain with max_inflight 8. The
     originals download their full image, held against the golden file;
     the variants their output slice, audited against the checksum of the
     bench's numpy reference and held against it and against the golden
     file's stats (the JAX reference's run of the same variant)."""
     sched = Scheduler(GGPUConfig(n_cus=8), max_inflight=8, device=dev)
     expected = {}
-    for name in programs.LEGACY_ORDER:
+    for name in DRAIN_BENCHES:
         key = f"8cu/shared/{name}"
         prog, mem0, n, out, _ = launch(MAIN_RUNS_BY_KEY[key], benches)
         sched.submit(prog, mem0, n, tag=key)
@@ -1739,7 +1816,8 @@ def serve_drain(benches, golden, dev):
                                      audit=result_checksum(vexp)))
         expected[run.key] = vexp
     results = sched.drain()
-    check(not sched.quarantined and len(results) == 16,
+    check(not sched.quarantined
+          and len(results) == 2 * len(DRAIN_BENCHES),
           f"serve drain: {len(results)} results, quarantined "
           f"{ {t: str(q.error) for t, q in sched.quarantined.items()} }")
     for res in results:
@@ -1887,7 +1965,7 @@ def busy_share(name, fn) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rounds = pe_simd.LAUNCHES - before
-    kernels, profiled_ms = _profiled(fn)
+    kernels, _ = _profiled(fn)
     busy = _device_ms_of(kernels)
     return {"what": name, "rounds": rounds, "wall_ms": wall_ms,
             "wall_ms_per_round": wall_ms / rounds,
@@ -2010,7 +2088,6 @@ RES_EXACT = {
     "straggler": ("n",)}
 # resilience_bench.invariant_problems' limits
 MIN_SERVED_CORRECT, MIN_GOODPUT_RATIO = 0.999, 0.2
-CELL = ("shared", "cohort", "earliest-finish", "seu")
 
 
 def fleet_leg(dev) -> tuple:
@@ -2266,14 +2343,12 @@ def resilience_legs(dev) -> dict:
 
 
 def registry_leg(dev) -> dict:
-    """selfcheck and smoke_all on the card with no problem, then one
-    cross-product cell under SEU injection with nothing lost."""
+    """selfcheck and smoke_all on the card with no problem (the
+    cross-product cell is cut: REDUCED)."""
     out = {}
     for name, fn in (("selfcheck", registry_smoke.selfcheck),
                      ("smoke_all", lambda emit: registry_smoke.smoke_all(
-                         emit, device=dev)),
-                     ("cell", lambda emit: registry_smoke.run_cell(
-                         *CELL[:3], emit, fault=CELL[3], device=dev))):
+                         emit, device=dev))):
         lines = []
         t0, r0 = time.perf_counter(), pe_simd.LAUNCHES
         bad = fn(lines.append)
@@ -2281,7 +2356,6 @@ def registry_leg(dev) -> dict:
         out[name] = {**_rounds_line(time.perf_counter() - t0,
                                     pe_simd.LAUNCHES - r0),
                      "lines": lines}
-    out["cell"]["cell"] = list(CELL)
     return out
 
 
@@ -2774,7 +2848,7 @@ def train_profile(trainer, model, opt, steps: int = 2) -> dict:
     t0 = time.perf_counter()
     # device activity only: a step is ~51k device ops, and host events
     # would double what the profiler records and then sorts through
-    kernels, profiled_ms = _profiled(run(batches[steps:]), host=False)
+    kernels, profiled_ms = _profiled(run(batches[steps:]))
     busy = _device_ms_of(kernels)
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "profile_s": time.perf_counter() - t0,
@@ -2992,22 +3066,57 @@ def golden_moe_spec() -> dict:
             "max_new": MOE_MAX_NEW, "topk": LM_TOPK}
 
 
-def moe_summarize(out, calls, prompts):
-    """What golden_moe.json keeps of one generate: per prompt its
-    generated tokens, the top-1/top-2 margin behind each and the top-k ids
-    and values of every step's logits (the prefill's first); per sampling
-    call the smallest router gap of its forward."""
-    rows = per_prompt(calls, len(prompts), MOE_SLOTS, MOE_MAX_NEW)
-    out_rows = []
-    for i, steps in enumerate(rows):
-        ids = [np.argsort(-x, kind="stable")[:LM_TOPK] for x in steps]
-        out_rows.append({
-            "tokens": [int(t) for t in out[i][len(prompts[i]):]],
-            "margins": [float(np.diff(np.sort(x)[-2:])[0]) for x in steps],
+def rows_summary(steps, tokens) -> list:
+    """Per row: its tokens, the top-1/top-2 margin of the logits behind
+    each, and the top-k ids and values of every step's logits.
+    ``steps[i]``: row i's logits (V,) of each step; ``tokens[i]``: its
+    tokens."""
+    out = []
+    for row, toks in zip(steps, tokens):
+        ids = [np.argsort(-x, kind="stable")[:LM_TOPK] for x in row]
+        out.append({
+            "tokens": [int(t) for t in toks],
+            "margins": [float(np.diff(np.sort(x)[-2:])[0]) for x in row],
             "top_ids": [[int(t) for t in d] for d in ids],
             "top_vals": [[float(x[t]) for t in d]
-                         for x, d in zip(steps, ids)]})
-    return {"prompts": out_rows,
+                         for x, d in zip(row, ids)]})
+    return out
+
+
+def steps_summary(out, calls, prompts, slots: int, max_new: int) -> list:
+    """``rows_summary`` of one generate, per prompt (the prefill's step
+    first)."""
+    return rows_summary(per_prompt(calls, len(prompts), slots, max_new),
+                        [o[len(p):] for o, p in zip(out, prompts)])
+
+
+def golden_steps_err(steps, mine, golden_rows, n_steps: int, what: str,
+                     tol: float = GOLDEN_TOL):
+    """A run's rows against a golden file's: tokens equal up to the first
+    step whose golden margin is under ``tol``, and the largest |error| of
+    the top-k logits at the golden ids over those steps and the next
+    (which saw equal tokens). Returns (largest error, steps matched per
+    row, steps compared)."""
+    top_err, matched, compared = 0.0, [], 0
+    for i, (ref, got) in enumerate(zip(golden_rows, mine)):
+        n = _matched_steps(got["tokens"], ref["tokens"], ref["margins"],
+                           tol, f"{what} {i}")
+        matched.append(n)
+        top_err = max(top_err, float(np.abs(np.asarray(
+            got["top_vals"][0]) - ref["top_vals"][0]).max()))
+        for t in range(min(n + 1, n_steps)):
+            at_ref = steps[i][t][ref["top_ids"][t]]
+            top_err = max(top_err,
+                          float(np.abs(at_ref - ref["top_vals"][t]).max()))
+            compared += 1
+    return top_err, matched, compared
+
+
+def moe_summarize(out, calls, prompts):
+    """What golden_moe.json keeps of one generate: ``steps_summary``; per
+    sampling call the smallest router gap of its forward."""
+    return {"prompts": steps_summary(out, calls, prompts, MOE_SLOTS,
+                                     MOE_MAX_NEW),
             "router_gaps": [float(c[2]) for c in calls]}
 
 
@@ -3045,19 +3154,9 @@ def moe_golden(dev) -> dict:
     check(len(calls) == 2 * MOE_MAX_NEW, f"{len(calls)} sampling calls")
     mine = moe_summarize(out, calls, prompts)
     steps = per_prompt(calls, len(prompts), MOE_SLOTS, MOE_MAX_NEW)
-    top_err, matched, compared = 0.0, [], 0
-    for i, (ref, got) in enumerate(zip(golden["prompts"], mine["prompts"])):
-        n = _matched_steps(got["tokens"], ref["tokens"], ref["margins"],
-                           GOLDEN_TOL, f"MoE golden prompt {i}")
-        matched.append(n)
-        top_err = max(top_err, float(np.abs(np.asarray(
-            got["top_vals"][0]) - ref["top_vals"][0]).max()))
-        # steps 0..n saw equal tokens: their logits are comparable
-        for t in range(min(n + 1, MOE_MAX_NEW)):
-            at_ref = steps[i][t][ref["top_ids"][t]]
-            top_err = max(top_err,
-                          float(np.abs(at_ref - ref["top_vals"][t]).max()))
-            compared += 1
+    top_err, matched, compared = golden_steps_err(
+        steps, mine["prompts"], golden["prompts"], MOE_MAX_NEW,
+        "MoE golden prompt")
     res = {"layers": cfg.n_layers, "compute": "float32",
            "params": cfg.n_params(), "init_s": init_s, "wall_s": wall,
            "flash_launches_by_route": routes, "top_max_abs_err": top_err,
@@ -3177,9 +3276,12 @@ def _host_peak_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
-def _init_timed(cfg, dev):
+def _init_timed(cfg, dev, tree=None):
+    """The port's model of ``cfg`` on ``dev``, from ``tree`` or the seeded
+    ``init_model``, with the seconds it took and the host's peak RSS."""
     t0 = time.perf_counter()
-    model = init_model(cfg, MOE_SEED, dev)
+    model = (init_model(cfg, MOE_SEED, dev) if tree is None
+             else params_from_reference(tree, cfg, dev))
     torch.cuda.synchronize()
     return model, {"init_s": time.perf_counter() - t0,
                    "host_peak_rss_gb": _host_peak_gb()}
@@ -3299,10 +3401,737 @@ def lm_moe_path(dev) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
+# -- phase 13: xLSTM-350M, HuBERT-XLarge and Qwen2-VL-72B --------------------
+
+MODELS = ROOT / "src" / "repro_torch" / "models"
+GOLDEN_XLSTM = MODELS / "golden_xlstm.json"
+GOLDEN_HUBERT = MODELS / "golden_hubert.json"
+GOLDEN_QWEN2_VL = MODELS / "golden_qwen2_vl.json"
+FAMILY_SEED = 0
+# xLSTM-350M at its published widths and all 24 layers. The golden run
+# (f32) is one wave of 4: the sLSTM runs 512 steps in 24 blocks of 22
+# (16 padded steps, which move its state), the mLSTM two chunks of 256.
+# The main path (bf16) is one wave up to 2,048 tokens.
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_SLOTS = 4
+XLSTM_MAX_NEW = 16
+GOLDEN_XLSTM_LENGTHS = (512, 300, 37, 9)
+XLSTM_LENGTHS = (2048, 1024, 300, 37)
+# its profile runs the wave's prompts cut to 256 tokens: the profiler's
+# ~250k events of a 2,048-token prefill (the sLSTM's loop) take ~40 s to
+# read back, and the loop's busy share does not depend on its length
+XLSTM_PROFILE_TOKENS = 256
+# The consistency check: the golden run's first prompt and its tokens,
+# 528 in all, prefilled to 506 = 22 x 23 (no padded sLSTM step) and
+# decoded the rest of the way, against one prefill of all 528.
+XLSTM_SPLIT = 506
+# HuBERT-XLarge at its published widths: the golden run at 2 of its 48
+# layers (f32), the main path at all 48 (bf16) on 4 clips of 30 s at 50
+# frames a second. Its biases and LayerNorm scales are drawn too
+# (``family_tree``): at their init (0 and 1) a missing bias cannot show.
+HUBERT_ARCH = "hubert-xlarge"
+GOLDEN_HUBERT_LAYERS = 2
+GOLDEN_HUBERT_FRAMES = (2, 400)
+HUBERT_FRAMES = (4, 1500)
+# Qwen2-VL-72B at its published widths: the golden run at 1 of its 80
+# layers (f32; 3.38 B parameters), the main path at 4 (bf16; 6.01 B, 24.0
+# GB in f32). A vision prefill of 2 images of (t, h, w) patches, then
+# greedy decode steps; then Engine.generate on token prompts.
+QWEN_VL_ARCH = "qwen2-vl-72b"
+GOLDEN_VL_LAYERS = 1
+GOLDEN_VL_GRID = (1, 16, 16)
+GOLDEN_VL_LENGTHS = (40, 17)
+VL_LAYERS = 4
+VL_GRID = (1, 64, 64)
+VL_LENGTHS = (2048, 700, 300, 45)
+VL_IMAGES = 2
+VL_DECODE = 8
+VL_MAX_NEW = 8
+# f32 golden runs: GOLDEN_TOL (1e-3) on the top-8 logits, as the other
+# golden runs, except xLSTM's. Its 24 layers of exponential gates carry
+# f32 rounding forward: read 8.4e-4 from the JAX package's logits on the
+# CPU and 6.6e-4 on an H100 (PERF.md), and 1.03e-3 between its own
+# chunked prefill and its recurrent decode on the card, where each block
+# alone agrees within 1e-5; the planted faults read 3.85 and more. Its
+# limit, XLSTM_TOL, sits 5x over the sound readings and ~800x under the
+# nearest fault, for the golden run and for the decoded steps against one
+# pass. The mLSTM's chunked scan and its recurrent form (chunks of 1) on
+# the same inputs differ only in the order of f32 sums: 3.3e-5 of the
+# largest |x| on an H100, on m (PERF.md). Their limit, XLSTM_STATE_TOL,
+# sits 3x over it; a chunk-end C 1e-3 high, which XLSTM_TOL would pass,
+# must fail it (XLSTM_STATE_FAULT). bf16 kernel path
+# against its plain path on the card, teacher forced where tokens feed
+# back: the 0.3 of the LM main path (the two round attention to bf16 at
+# other points; RecurrentGemma read ~0.1 over 26 layers).
+XLSTM_TOL = 5e-3
+XLSTM_STATE_TOL = 1e-4
+XLSTM_STATE_FAULT = 1e-3
+HUBERT_TOL = 0.3
+VL_TOL = 0.3
+
+
+def family_config(arch: str, layers: Optional[int] = None,
+                  golden: bool = False):
+    """``arch``'s published config, cut to ``layers``; f32 compute for a
+    golden run."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg.replace(compute_dtype="float32") if golden else cfg
+
+
+def family_tree(cfg, seed: int = FAMILY_SEED) -> dict:
+    """``init_numpy(cfg, seed)``; for a LayerNorm model every bias and
+    LayerNorm scale is then drawn from numpy as well (0.1 + 0.2 N(0, 1)
+    and 1 + 0.2 N(0, 1), in the schema's order)."""
+    tree = init_numpy(cfg, seed)
+    if cfg.norm != "layernorm":
+        return tree
+    g = np.random.default_rng([seed, 3])
+
+    def walk(t):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k in ("b", "bias"):
+                t[k] = (0.1 + 0.2 * g.standard_normal(v.shape)).astype(
+                    np.float32)
+            elif k == "scale":
+                t[k] = (1 + 0.2 * g.standard_normal(v.shape)).astype(
+                    np.float32)
+    walk(tree)
+    return tree
+
+
+def frames(shape, d: int, seed: int) -> np.ndarray:
+    """Frame or patch embeddings (B, S, d) made from ``seed``."""
+    return np.random.default_rng([FAMILY_SEED, seed]).standard_normal(
+        (*shape, d), np.float32)
+
+
+def grid_positions(images: int, grid) -> np.ndarray:
+    """(3, images, t·h·w) positions of each image's t x h x w patches,
+    row-major: patch (i, j, k) sits at (t, h, w) = (i, j, k)."""
+    t, h, w = np.meshgrid(*(np.arange(n) for n in grid), indexing="ij")
+    pos = np.stack([t.ravel(), h.ravel(), w.ravel()])
+    return np.array(np.broadcast_to(pos[:, None], (3, images,
+                                                   pos.shape[1])))
+
+
+def family_prompts(vocab: int, lengths, seed: int):
+    """Token prompts of ``lengths`` made from (FAMILY_SEED, ``seed``)."""
+    g = np.random.default_rng([FAMILY_SEED, seed])
+    return [[int(t) for t in g.integers(0, vocab, n)] for n in lengths]
+
+
+def golden_xlstm_spec() -> dict:
+    return {"arch": XLSTM_ARCH, "n_layers": get_config(XLSTM_ARCH).n_layers,
+            "compute_dtype": "float32", "seed": FAMILY_SEED,
+            "lengths": list(GOLDEN_XLSTM_LENGTHS), "slots": XLSTM_SLOTS,
+            "max_new": XLSTM_MAX_NEW, "topk": LM_TOPK}
+
+
+def golden_hubert_spec() -> dict:
+    return {"arch": HUBERT_ARCH, "n_layers": GOLDEN_HUBERT_LAYERS,
+            "compute_dtype": "float32", "seed": FAMILY_SEED,
+            "frames": list(GOLDEN_HUBERT_FRAMES), "topk": LM_TOPK}
+
+
+def golden_vl_spec() -> dict:
+    return {"arch": QWEN_VL_ARCH, "n_layers": GOLDEN_VL_LAYERS,
+            "compute_dtype": "float32", "seed": FAMILY_SEED,
+            "images": VL_IMAGES, "grid": list(GOLDEN_VL_GRID),
+            "decode_steps": VL_DECODE, "lengths": list(GOLDEN_VL_LENGTHS),
+            "slots": len(GOLDEN_VL_LENGTHS), "max_new": VL_MAX_NEW,
+            "topk": LM_TOPK}
+
+
+def encode_summary(logits) -> dict:
+    """The top-k ids and values of every frame's logits (B, S, V)."""
+    x = to_numpy(logits)
+    ids = np.argsort(-x, axis=-1, kind="stable")[..., :LM_TOPK]
+    return {"top_ids": ids.tolist(),
+            "top_vals": np.take_along_axis(x, ids, -1).tolist()}
+
+
+def encode_err(logits, golden: dict) -> float:
+    """Largest |error| of ``logits`` at the golden top-k ids."""
+    ids = np.asarray(golden["top_ids"])
+    return float(np.abs(np.take_along_axis(to_numpy(logits), ids, -1)
+                        - np.asarray(golden["top_vals"])).max())
+
+
+def vision_generate(model, cfg, embeds, positions, steps: int,
+                    forced=None):
+    """A vision prefill of patch embeddings (B, S, d_frontend) at (3, B,
+    S) positions, then ``steps`` greedy decode steps at cache positions S,
+    S + 1, ... (every stream the same, as the reference decodes). With
+    ``forced`` (per call, the rows' tokens) those are fed instead of the
+    model's choice. Returns calls[i] = (logits (B, V) numpy, the tokens
+    chosen): the prefill's first."""
+    s = embeds.shape[1]
+    calls = []
+    with torch.inference_mode():
+        logits, cache = M.prefill(model, cfg, embeds=embeds,
+                                  positions=positions, pad_to=s + steps + 1)
+        for t in range(steps + 1):
+            tok = logits.argmax(-1)
+            calls.append((to_numpy(logits), [int(x) for x in tok.tolist()]))
+            if t == steps:
+                break
+            if forced is not None:
+                tok = torch.as_tensor(forced[t], device=logits.device)
+            logits, cache = M.decode_step(model, cfg, cache, tok[:, None],
+                                          s + t)
+    return calls
+
+
+def calls_rows(calls):
+    """(per row its logits of each call, per row its tokens)."""
+    rows = range(len(calls[0][1]))
+    return ([[c[0][r] for c in calls] for r in rows],
+            [[c[1][r] for c in calls] for r in rows])
+
+
+def forced_err(steps, golden_rows) -> float:
+    """Largest |error| of teacher-forced rows at the golden top-k ids,
+    over every step."""
+    return max(float(np.abs(row[t][ref["top_ids"][t]]
+                            - ref["top_vals"][t]).max())
+               for row, ref in zip(steps, golden_rows)
+               for t in range(len(ref["top_ids"])))
+
+
+def _mp_dropped(orig):
+    """An mLSTM chunk that takes the carried stabiliser m as 0 (the
+    carried C and n keep their scale)."""
+    def run(carry, inp):
+        c, n, m = carry
+        return orig((c, n, torch.zeros_like(m)), inp)
+    return run
+
+
+def _c_undecayed(orig):
+    """An mLSTM chunk whose chunk-end C keeps the carried C undecayed."""
+    def run(carry, inp):
+        (c_new, n_new, m_new), h = orig(carry, inp)
+        c_p, _, m_p = carry
+        decay = torch.exp(inp[4].sum(1) + m_p - m_new)
+        return (c_new + (1 - decay)[..., None, None] * c_p, n_new, m_new), h
+    return run
+
+
+def _chunk_c_high(orig):
+    """An mLSTM chunk of more than one step whose chunk-end C comes out
+    XLSTM_STATE_FAULT high (the recurrent form's chunks of 1 are sound)."""
+    def run(carry, inp):
+        (c_new, n_new, m_new), h = orig(carry, inp)
+        if inp[0].shape[1] > 1:
+            c_new = c_new * (1 + XLSTM_STATE_FAULT)
+        return (c_new, n_new, m_new), h
+    return run
+
+
+def _sigmoid_forget(orig):
+    """An sLSTM step whose forget gate is sigmoid(f), not the stabilised
+    exponential exp(f + m - m_new)."""
+    def run(carry, g_t, rg):
+        c, n, hprev, m = carry
+        b, d = c.shape
+        h, hd = rg.shape[:2]
+        r = torch.einsum("bhd,hde->bhe", hprev.reshape(b, h, hd),
+                         rg).reshape(b, 4 * d)
+        gi, gf, gz, go = (g_t + r).chunk(4, dim=-1)
+        m_new = torch.maximum(gf + m, gi)
+        ip = torch.exp(gi - m_new)
+        fp = torch.sigmoid(gf)
+        c_new = fp * c + ip * torch.tanh(gz)
+        n_new = fp * n + ip
+        return (c_new, n_new,
+                torch.sigmoid(go) * c_new / torch.clamp(n_new, min=1e-6),
+                m_new)
+    return run
+
+
+def _causal(orig):
+    """flash_attention with the causal mask on."""
+    def run(q, k, v, *, causal, window, scale):
+        return orig(q, k, v, causal=True, window=window, scale=scale)
+    return run
+
+
+def _no_mean(orig):
+    """apply_norm whose LayerNorm subtracts no mean (RMS with the bias)."""
+    def run(p, x, cfg):
+        return orig(p, x, cfg.replace(norm="rmsnorm"))
+    return run
+
+
+def _no_wo_bias(orig):
+    """attn_block without wo's bias."""
+    def run(p, x, cfg, kind, **kw):
+        bias, p.wo.b = p.wo.b, None
+        try:
+            return orig(p, x, cfg, kind, **kw)
+        finally:
+            p.wo.b = bias
+    return run
+
+
+def _hw_swapped(orig):
+    """apply_mrope with the h and w streams swapped."""
+    def run(x, pos3, theta, sections):
+        return orig(x, pos3[[0, 2, 1]], theta, sections)
+    return run
+
+
+def _t_stream_rope(orig):
+    """plain RoPE over the t stream in place of M-RoPE."""
+    def run(x, pos3, theta, sections):
+        return ML.apply_rope(x, pos3[0], theta)
+    return run
+
+
+def _sections_rotated(orig):
+    """apply_mrope with its sections rotated by one: (24, 24, 16) for the
+    published (16, 24, 24)."""
+    def run(x, pos3, theta, sections):
+        return orig(x, pos3, theta, tuple(sections[1:]) + tuple(sections[:1]))
+    return run
+
+
+# Faults planted in each family's golden run, (name, patches): each must
+# move the golden comparison past GOLDEN_TOL. LayerNorm is patched where
+# each module looks it up.
+XLSTM_FAULTS = (
+    ("mLSTM without its stabiliser carry (m_p taken as 0)",
+     ((rec, "_mlstm_chunk", _mp_dropped),)),
+    ("sLSTM forget gate a sigmoid", ((rec, "slstm_step", _sigmoid_forget),)),
+    ("mLSTM chunk-end C not decayed",
+     ((rec, "_mlstm_chunk", _c_undecayed),)))
+HUBERT_FAULTS = (
+    ("causal attention mask", ((kops, "flash_attention", _causal),)),
+    ("LayerNorm without mean subtraction",
+     tuple((mod, "apply_norm", _no_mean) for mod in (MA, ML, M))),
+    ("wo without its bias", ((M, "attn_block", _no_wo_bias),)))
+VL_FAULTS = (
+    ("h and w streams swapped", ((MA, "apply_mrope", _hw_swapped),)),
+    ("plain RoPE over the t stream", ((MA, "apply_mrope", _t_stream_rope),)),
+    ("M-RoPE sections (24, 24, 16)", ((MA, "apply_mrope",
+                                       _sections_rotated),)))
+
+
+def _golden(path, spec) -> dict:
+    golden = json.loads(path.read_text())
+    check(golden["spec"] == spec, f"{path.name} was made for "
+          f"{golden['spec']}, not {spec}: regenerate it")
+    return golden
+
+
+def _check_faults(what: str, faults: dict, tol: float) -> None:
+    for name, err in faults.items():
+        check(err > tol, f"{what}: planted fault '{name}' passes the "
+              f"{tol} limit (max |err| {err})")
+
+
+def xlstm_golden(dev) -> tuple:
+    """xLSTM-350M, 24 layers, f32, against golden_xlstm.json: every
+    step's top-8 logits within XLSTM_TOL, the tokens equal; each of
+    XLSTM_FAULTS, teacher forced with the golden tokens, past it. Then
+    the consistency of the chunked and recurrent forms (XLSTM_SPLIT).
+    Returns (the result, the model: the main path's weights too)."""
+    golden = _golden(GOLDEN_XLSTM, golden_xlstm_spec())
+    cfg = family_config(XLSTM_ARCH, golden=True)
+    model, init = _init_timed(cfg, dev)
+    prompts = family_prompts(cfg.vocab_size, GOLDEN_XLSTM_LENGTHS, 1)
+    engine = Engine(cfg, model, EngineConfig(slots=XLSTM_SLOTS))
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    out, calls = record_generate(engine, prompts, XLSTM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    check(launch_counts() == counts, "xLSTM launched a kernel")
+    steps = per_prompt(calls, len(prompts), XLSTM_SLOTS, XLSTM_MAX_NEW)
+    mine = steps_summary(out, calls, prompts, XLSTM_SLOTS, XLSTM_MAX_NEW)
+    top_err, matched, compared = golden_steps_err(
+        steps, mine, golden["prompts"], XLSTM_MAX_NEW, "xLSTM golden prompt",
+        XLSTM_TOL)
+    forced = [[row["tokens"][t] for row in golden["prompts"]]
+              for t in range(XLSTM_MAX_NEW)]
+
+    def forced_run():
+        _, fcalls = record_generate(engine, prompts, XLSTM_MAX_NEW, forced)
+        return forced_err(per_prompt(fcalls, len(prompts), XLSTM_SLOTS,
+                                     XLSTM_MAX_NEW), golden["prompts"])
+    # every step's logits, fed the golden tokens (the free run above
+    # compares steps only up to the first margin under XLSTM_TOL)
+    forced_sound = forced_run()
+    faults = {}
+    for name, patches in XLSTM_FAULTS:
+        with planted(patches):
+            faults[name] = forced_run()
+    consist = xlstm_consistency(model, cfg, out[0])
+    res = {"layers": cfg.n_layers, "compute": "float32",
+           "params": cfg.n_params(), **init, "wall_s": wall,
+           "top_max_abs_err": top_err, "tol": XLSTM_TOL,
+           "forced_top_max_abs_err": forced_sound,
+           "steps_compared": compared, "steps_matched": matched,
+           "of_steps": XLSTM_MAX_NEW, "planted_faults": faults,
+           "consistency": consist}
+    emit({"xlstm_golden": res})
+    check(max(top_err, forced_sound) <= XLSTM_TOL, f"xLSTM golden logits: "
+          f"max |err| {top_err} (free), {forced_sound} (fed the golden "
+          f"tokens) > {XLSTM_TOL}")
+    _check_faults("xLSTM golden", faults, XLSTM_TOL)
+    check(consist["decode_vs_prefill"] <= XLSTM_TOL,
+          f"xLSTM: decoding on from a prefill differs from one pass: "
+          f"{consist}")
+    check(consist["chunked_vs_recurrent"] <= XLSTM_STATE_TOL,
+          f"xLSTM: the chunked and recurrent scans differ: {consist}")
+    _check_faults("xLSTM chunked vs recurrent",
+                  consist["planted_fault"], XLSTM_STATE_TOL)
+    del engine, calls, steps
+    return res, model
+
+
+def xlstm_consistency(model, cfg, seq) -> dict:
+    """``seq`` prefilled to XLSTM_SPLIT and decoded the rest of the way,
+    each step's logits against one pass over all of ``seq`` at the same
+    position; and the first mLSTM layer's scan of the prefill in chunks of
+    ``cfg.mlstm_chunk`` against chunks of 1 (the recurrent form): its
+    outputs and final (C, n, m), over each one's largest |x|, sound and
+    with the chunk-end C XLSTM_STATE_FAULT high."""
+    toks = torch.as_tensor([seq], device=model.device)
+    taken = []
+    scan = rec.mlstm_scan
+
+    def first_scan(*args):
+        out = scan(*args)
+        if not taken:
+            taken.append(args)
+        return out
+    rec.mlstm_scan = first_scan
+    try:
+        with torch.inference_mode():
+            logits, cache = M.prefill(model, cfg, tokens=toks[:, :XLSTM_SPLIT])
+    finally:
+        rec.mlstm_scan = scan
+    with torch.inference_mode():
+        got = []
+        for t in range(XLSTM_SPLIT, len(seq)):
+            got.append(logits)
+            logits, cache = M.decode_step(model, cfg, cache,
+                                          toks[:, t:t + 1], t)
+        x, _, _ = M.forward(model, cfg, tokens=toks, mode="encode")
+        whole = M.lm_logits(model, cfg, x[:, XLSTM_SPLIT - 1:-1])
+        step_err = float((torch.stack(got, 1) - whole).abs().max())
+        q, k, v, logi, logf, state, chunk = taken[0]
+        h_r, st_r = scan(q, k, v, logi, logf, state, 1)
+
+        def rel_errs():
+            h_c, st_c = scan(q, k, v, logi, logf, state, chunk)
+            return [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip((h_c, *st_c), (h_r, *st_r))]
+        rel = rel_errs()
+        with planted(((rec, "_mlstm_chunk", _chunk_c_high),)):
+            fault = max(rel_errs())
+    return {"split": XLSTM_SPLIT, "decoded": len(seq) - XLSTM_SPLIT,
+            "decode_vs_prefill": step_err, "tol": XLSTM_TOL, "chunk": chunk,
+            "chunked_vs_recurrent": max(rel),
+            "chunked_vs_recurrent_h_c_n_m": rel,
+            "state_tol": XLSTM_STATE_TOL,
+            "planted_fault": {f"chunk-end C {XLSTM_STATE_FAULT} high": fault}}
+
+
+def xlstm_main(model, dev) -> dict:
+    """xLSTM-350M, 24 layers, bf16 (``model``: the golden run's weights),
+    one wave of XLSTM_LENGTHS through Engine.generate, timed with CUDA
+    events; no kernel on this path (the mLSTM and sLSTM are torch
+    operations, as the reference's are plain XLA); a profile of its
+    prefill (cut to XLSTM_PROFILE_TOKENS) and decode steps, device ops
+    only."""
+    cfg = family_config(XLSTM_ARCH)
+    prompts = family_prompts(cfg.vocab_size, XLSTM_LENGTHS, 2)
+    engine = Engine(cfg, model, EngineConfig(slots=XLSTM_SLOTS))
+    t0 = time.perf_counter()
+    # warm-up, first-use costs: the wave's shapes but 64 tokens a row
+    engine.generate([p[:64] for p in prompts], 2)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, marks = timed_generate(engine, prompts, XLSTM_MAX_NEW)
+    wall = time.perf_counter() - t0
+    waves = _waves(marks, (0, 0, 0, 0), XLSTM_MAX_NEW)
+    check(launch_counts() == (0, 0, 0, 0),
+          f"xLSTM launched kernels: {launch_counts()}")
+    generated = sum(len(o) - len(p) for o, p in zip(out, prompts))
+    check(all(0 <= t < cfg.vocab_size for o in out for t in o),
+          "xLSTM generated a token outside the vocabulary")
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "compute": cfg.compute_dtype, "params": cfg.n_params(),
+           "warm_up_s": warm_s, "wall_s": wall, "waves": waves,
+           "generated_tokens": generated, "tokens_per_s": generated / wall,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kernels": "none on this path: the mLSTM and sLSTM are torch "
+                      "operations (plain XLA in the reference)"}
+    emit({"xlstm_main": res})
+    lm_profile(model, cfg, [p[:XLSTM_PROFILE_TOKENS] for p in prompts],
+               key="xlstm_profile")
+    del model, engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def hubert_golden(dev) -> dict:
+    """HuBERT-XLarge at 2 layers, f32, ``encode`` of seeded frames through
+    flash_attention (SIMT route) against golden_hubert.json: every
+    frame's top-8 logits within GOLDEN_TOL; each of HUBERT_FAULTS past
+    it."""
+    golden = _golden(GOLDEN_HUBERT, golden_hubert_spec())
+    cfg = family_config(HUBERT_ARCH, GOLDEN_HUBERT_LAYERS, golden=True)
+    model, init = _init_timed(cfg, dev, family_tree(cfg))
+    x = torch.as_tensor(frames(GOLDEN_HUBERT_FRAMES, cfg.d_frontend, 1),
+                        device=dev)
+    before = dict(fa.ROUTE_LAUNCHES)
+    logits = M.encode(model, cfg, x)
+    routes = {r: n - before[r] for r, n in fa.ROUTE_LAUNCHES.items()}
+    check(routes == {"simt": cfg.n_layers, "tensor_core": 0},
+          f"HuBERT golden run (f32): flash_attention launches by route "
+          f"{routes}")
+    err = encode_err(logits, golden)
+    faults = {}
+    for name, patches in HUBERT_FAULTS:
+        with planted(patches):
+            faults[name] = encode_err(M.encode(model, cfg, x), golden)
+    res = {"layers": cfg.n_layers, "compute": "float32",
+           "params": cfg.n_params(), **init,
+           "frames": list(GOLDEN_HUBERT_FRAMES),
+           "flash_launches_by_route": routes, "top_max_abs_err": err,
+           "tol": GOLDEN_TOL, "planted_faults": faults}
+    emit({"hubert_golden": res})
+    check(err <= GOLDEN_TOL, f"HuBERT golden logits: max |err| {err} > "
+          f"{GOLDEN_TOL}")
+    _check_faults("HuBERT golden", faults, GOLDEN_TOL)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def hubert_main(dev) -> dict:
+    """HuBERT-XLarge, 48 layers, bf16: ``encode`` of HUBERT_FRAMES through
+    flash_attention (bidirectional, hd 80, tensor-core route), timed,
+    against its plain path (use_kernels=False) within HUBERT_TOL; a
+    profile. Returns the flash_attention launches of one encode."""
+    cfg = family_config(HUBERT_ARCH)
+    t0 = time.perf_counter()
+    model, init = _init_timed(cfg, dev, family_tree(cfg))
+    init["init_s"] = time.perf_counter() - t0   # the tree's draws too
+    x = torch.as_tensor(frames(HUBERT_FRAMES, cfg.d_frontend, 2), device=dev)
+    plain_cfg = cfg.replace(use_kernels=False)
+    M.encode(model, cfg, x)                    # warm-up: first-use costs
+    reset_launch_counts()
+    logits = M.encode(model, cfg, x)
+    counts = launch_counts()
+    check(counts == (cfg.n_layers, 0, cfg.n_layers, 0),
+          f"HuBERT encode launches {counts}")
+    plain = M.encode(model, plain_cfg, x)
+    check(launch_counts() == counts, "the plain path launched a kernel")
+    err = float((logits.float() - plain.float()).abs().max())
+    finite = bool(torch.isfinite(logits).all())
+    ms = _eager_ms(lambda: M.encode(model, cfg, x), 3)
+    plain_ms = _eager_ms(lambda: M.encode(model, plain_cfg, x), 1)
+    kernels, profiled_ms = _profiled(lambda: M.encode(model, cfg, x))
+    busy = _device_ms_of(kernels)
+    n_frames = HUBERT_FRAMES[0] * HUBERT_FRAMES[1]
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "compute": cfg.compute_dtype, "params": cfg.n_params(), **init,
+           "frames": list(HUBERT_FRAMES), "logits_shape": list(logits.shape),
+           "finite": finite, "kernel_vs_plain_max_abs": err,
+           "tol": HUBERT_TOL, "flash_attention_launches": counts[0],
+           "flash_attention_tensor_core_launches": counts[2],
+           "encode_ms": ms, "plain_encode_ms": plain_ms,
+           "frames_per_s": n_frames / ms * 1e3,
+           "profile": {"profiled_wall_ms": profiled_ms, "device_ms": busy,
+                       "device_busy_share": busy / ms,
+                       "device_ops": len(kernels),
+                       "flash_attention_ms": sum(
+                           _device_ms_of(kernels, sym)
+                           for sym in FLASH_SYMBOLS),
+                       "top_device_ms": _top(kernels, 8)},
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"hubert_main": res})
+    check(finite and tuple(logits.shape) == (*HUBERT_FRAMES, cfg.vocab_size),
+          f"HuBERT logits {tuple(logits.shape)}, finite {finite}")
+    check(err <= HUBERT_TOL, f"HuBERT bf16 encode, kernels vs plain: max "
+          f"|err| {err} > {HUBERT_TOL}")
+    del model, logits, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def _vision_inputs(cfg, grid, seed: int, dev):
+    s = int(np.prod(grid))
+    return (torch.as_tensor(frames((VL_IMAGES, s), cfg.d_frontend, seed),
+                            device=dev),
+            torch.as_tensor(grid_positions(VL_IMAGES, grid), device=dev))
+
+
+def first_layers(model, n: int):
+    """``model`` with its first ``n`` layers only, sharing their
+    parameters. ``init_numpy`` draws a stacked leaf's first layers as a
+    shallower model's, so this is the seeded ``n``-layer model."""
+    view = copy.copy(model)
+    view._modules = dict(model._modules, layers=model.layers[:n])
+    return view
+
+
+def vl_golden(dev, deep) -> dict:
+    """Qwen2-VL-72B at 1 layer (the first of ``deep``, the main path's
+    model), f32, against golden_qwen2_vl.json: the vision prefill and
+    VL_DECODE decode steps, and Engine.generate on token prompts, every
+    step's top-8 logits within GOLDEN_TOL, the tokens equal; each of
+    VL_FAULTS past it on the vision prefill."""
+    golden = _golden(GOLDEN_QWEN2_VL, golden_vl_spec())
+    cfg = family_config(QWEN_VL_ARCH, GOLDEN_VL_LAYERS, golden=True)
+    model = first_layers(deep, GOLDEN_VL_LAYERS)
+    embeds, pos = _vision_inputs(cfg, GOLDEN_VL_GRID, 1, dev)
+    calls = vision_generate(model, cfg, embeds, pos, VL_DECODE)
+    steps, toks = calls_rows(calls)
+    vis_err, vis_matched, _ = golden_steps_err(
+        steps, rows_summary(steps, toks), golden["vision"], VL_DECODE + 1,
+        "Qwen2-VL golden image")
+    faults = {}
+    for name, patches in VL_FAULTS:
+        with planted(patches):
+            with torch.inference_mode():
+                logits, _ = M.prefill(model, cfg, embeds=embeds,
+                                      positions=pos)
+        faults[name] = forced_err([[r] for r in to_numpy(logits)],
+                                  [{k: v[:1] for k, v in row.items()}
+                                   for row in golden["vision"]])
+    prompts = family_prompts(cfg.vocab_size, GOLDEN_VL_LENGTHS, 3)
+    slots = len(prompts)
+    out, gcalls = record_generate(Engine(cfg, model,
+                                         EngineConfig(slots=slots)),
+                                  prompts, VL_MAX_NEW)
+    gen_steps = per_prompt(gcalls, len(prompts), slots, VL_MAX_NEW)
+    gen_err, gen_matched, _ = golden_steps_err(
+        gen_steps, steps_summary(out, gcalls, prompts, slots, VL_MAX_NEW),
+        golden["prompts"], VL_MAX_NEW, "Qwen2-VL golden prompt")
+    res = {"layers": cfg.n_layers, "compute": "float32",
+           "params": cfg.n_params(),
+           "vision": {"tokens": int(embeds.shape[1]), "top_max_abs_err":
+                      vis_err, "steps_matched": vis_matched,
+                      "of_steps": VL_DECODE + 1},
+           "generate": {"top_max_abs_err": gen_err,
+                        "steps_matched": gen_matched,
+                        "of_steps": VL_MAX_NEW},
+           "tol": GOLDEN_TOL, "planted_faults_on_the_vision_prefill": faults}
+    emit({"qwen2_vl_golden": res})
+    check(max(vis_err, gen_err) <= GOLDEN_TOL, f"Qwen2-VL golden logits: "
+          f"max |err| {vis_err} (vision), {gen_err} (tokens) > {GOLDEN_TOL}")
+    _check_faults("Qwen2-VL golden", faults, GOLDEN_TOL)
+    return res
+
+
+def vl_main(model, init: dict, dev) -> dict:
+    """Qwen2-VL-72B at 4 layers (``model``, built in ``init``), bf16: the
+    vision prefill of VL_IMAGES images of VL_GRID patches and VL_DECODE
+    decode steps through
+    flash_attention (causal, GQA 8, hd 128; tensor-core route), timed,
+    then its plain path and the kernel path fed the plain path's tokens
+    within VL_TOL; then Engine.generate on VL_LENGTHS through
+    ``kernel_vs_plain``. Returns the flash_attention launches of the
+    timed vision run."""
+    cfg = family_config(QWEN_VL_ARCH, VL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    embeds, pos = _vision_inputs(cfg, VL_GRID, 2, dev)
+    vision_generate(model, cfg, embeds, pos, 1)     # warm-up
+    reset_launch_counts()
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    s = embeds.shape[1]
+    with torch.inference_mode():
+        start.record()
+        logits, cache = M.prefill(model, cfg, embeds=embeds, positions=pos,
+                                  pad_to=s + VL_DECODE + 1)
+        mid.record()
+        counts = launch_counts()
+        for t in range(VL_DECODE):
+            logits, cache = M.decode_step(model, cfg, cache,
+                                          logits.argmax(-1)[:, None], s + t)
+        end.record()
+    torch.cuda.synchronize()
+    check(counts == (cfg.n_layers, 0, cfg.n_layers, 0)
+          and launch_counts() == counts,
+          f"Qwen2-VL vision launches {counts} in the prefill, "
+          f"{launch_counts()} after decode")
+    del cache
+    plain_cfg = cfg.replace(use_kernels=False)
+    plain = vision_generate(model, plain_cfg, embeds, pos, VL_DECODE)
+    check(launch_counts() == counts, "the plain path launched a kernel")
+    forced = vision_generate(model, cfg, embeds, pos, VL_DECODE,
+                             forced=[c[1] for c in plain])
+    errs = [float(np.abs(a[0] - b[0]).max()) for a, b in zip(forced, plain)]
+    served = kernel_vs_plain(cfg, model, family_prompts(
+        cfg.vocab_size, VL_LENGTHS, 4), len(VL_LENGTHS), VL_MAX_NEW, VL_TOL)
+    del served["plain_tokens"]
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "compute": cfg.compute_dtype, "params": cfg.n_params(), **init,
+           "vision": {"images": VL_IMAGES, "grid": list(VL_GRID),
+                      "tokens": s, "prefill_ms": start.elapsed_time(mid),
+                      "decode_ms_per_step": mid.elapsed_time(end)
+                      / VL_DECODE,
+                      "flash_attention_launches": counts[0],
+                      "flash_attention_tensor_core_launches": counts[2],
+                      "forced_vs_plain_max": max(errs),
+                      "forced_vs_plain_prefill": errs[0],
+                      "tol": VL_TOL},
+           "generate": served,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"qwen2_vl_main": res})
+    check(max(errs) <= VL_TOL, f"Qwen2-VL vision, kernels vs plain (teacher "
+          f"forced): max |err| {max(errs)} > {VL_TOL}")
+    _check_served("Qwen2-VL-72B", served)
+    return res
+
+
+def lm_families_path(dev) -> dict:
+    """Phase 13 (module doc): xLSTM-350M, HuBERT-XLarge and Qwen2-VL-72B,
+    each a golden run with planted faults and a main run at full width.
+    Returns flash_attention's launches on HuBERT's and Qwen2-VL's main
+    runs."""
+    t0 = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+    _, model = timed("xlstm_golden", xlstm_golden, dev)
+    timed("xlstm_main", xlstm_main, model, dev)
+    del model
+    torch.cuda.empty_cache()
+    timed("hubert_golden", hubert_golden, dev)
+    hubert = timed("hubert_main", hubert_main, dev)
+    model, init = timed("qwen2_vl_init", _init_timed,
+                        family_config(QWEN_VL_ARCH, VL_LAYERS), dev)
+    timed("qwen2_vl_golden", vl_golden, dev, model)
+    vl = timed("qwen2_vl_main", vl_main, model, init, dev)
+    del model
+    torch.cuda.empty_cache()
+    return {"hubert_flash_launches": hubert["flash_attention_launches"],
+            "qwen2_vl_flash_launches":
+                vl["vision"]["flash_attention_launches"],
+            "wall_s": time.perf_counter() - t0, "wall_s_by_run": walls}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
-            or not GOLDEN_LM.is_file() or not GOLDEN_TRAIN.is_file() \
-            or not GOLDEN_MOE.is_file():
+            or not all(p.is_file() for p in (
+                GOLDEN_LM, GOLDEN_TRAIN, GOLDEN_MOE, GOLDEN_XLSTM,
+                GOLDEN_HUBERT, GOLDEN_QWEN2_VL)):
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
               "(no src/repro_torch beside this script)", file=sys.stderr)
         return 1
@@ -3324,6 +4153,7 @@ def main() -> int:
                      "torch": torch.__version__, "cuda": torch.version.cuda,
                      "capability": list(torch.cuda.get_device_capability(0))}})
 
+    laps = [("start", time.perf_counter())]     # each phase's wall, s
     t0 = time.perf_counter()
     _build.build_all(["pe_simd", "flash_attention", "rglru_scan"])
     build_s = time.perf_counter() - t0
@@ -3335,6 +4165,7 @@ def main() -> int:
     kernel = kernel_phase(dev)
     flash = flash_phase(dev)
     rglru = rglru_phase(dev)
+    laps.append(("build_and_kernels", time.perf_counter()))
 
     golden = json.loads(GOLDEN.read_text())
     benches = programs.all_benches()
@@ -3360,6 +4191,7 @@ def main() -> int:
           f"{launches} kernel launches")
     verify_folds(pending, dev)
     profile_phase(benches, dev)
+    laps.append(("simulator", time.perf_counter()))
 
     serve, serve_launches, serve_shapes, serve_wall = counted_path(
         serve_path, benches, golden, dev)
@@ -3370,12 +4202,14 @@ def main() -> int:
     _, rounds, wall = _timed(verify_serve, *serve["pending"], dev)
     emit({"serve_checks": _rounds_line(wall, rounds)})
     emit({"serve_profile": serve_profile(benches, dev)})
+    laps.append(("serving", time.perf_counter()))
     _, dse_launches, dse_shapes, dse_wall = counted_path(dse_path, dev)
     emit({"dse_path_counts": {
         "wall_s": dse_wall, "pe_execute_launches": dse_launches,
         "pe_execute_launches_by_shape": {
             f"{W}x{L}": n for (W, L), n in dse_shapes.items()}}})
     emit({"dse_profile": dse_profile(dev)})
+    laps.append(("dse", time.perf_counter()))
     fleet, fleet_launches, fleet_shapes, fleet_wall = counted_path(
         fleet_path, dev)
     emit({"fleet_path_counts": {
@@ -3386,6 +4220,7 @@ def main() -> int:
             f"{W}x{L}": n for (W, L), n in fleet_shapes.items()}}})
     emit({"fleet_profile": fleet_profile(dev, fleet["devices"],
                                          fleet["trace"])})
+    laps.append(("fleet", time.perf_counter()))
     _, compiler_launches, compiler_shapes, compiler_wall = counted_path(
         compiler_path, dev)
     emit({"compiler_path_counts": {
@@ -3394,22 +4229,32 @@ def main() -> int:
         "pe_execute_launches_by_shape": {
             f"{W}x{L}": n for (W, L), n in compiler_shapes.items()}}})
     emit({"compiler_profile": compiler_profile(dev)})
+    laps.append(("compiler", time.perf_counter()))
     path_launches = {"simulator": launches, "serve": serve_launches,
                      "dse": dse_launches, "fleet": fleet_launches,
                      "compiler": compiler_launches}
     pe = pe_shapes_phase(dev, {"simulator": by_shape, "serve": serve_shapes,
                                "dse": dse_shapes, "fleet": fleet_shapes,
                                "compiler": compiler_shapes})
+    laps.append(("pe_execute_shapes", time.perf_counter()))
 
     lm_golden(dev)
     flash_launches, rglru_launches, _, ring_launches = lm_main_path(dev)
     check(ring_launches == rglru_launches,
           f"rglru_scan: {ring_launches} of {rglru_launches} launches of the "
           "LM path on the ring route")
+    laps.append(("lm", time.perf_counter()))
     train = lm_train_path(dev)
     emit({"lm_train_path": {"wall_s": train["wall_s"]}})
+    laps.append(("lm_train", time.perf_counter()))
     moe_path = lm_moe_path(dev)
     emit({"lm_moe_path": moe_path})
+    laps.append(("lm_moe", time.perf_counter()))
+    families = lm_families_path(dev)
+    emit({"lm_families_path": families})
+    laps.append(("lm_families", time.perf_counter()))
+    emit({"phase_walls": {name: t - laps[i][1]
+                          for i, (name, t) in enumerate(laps[1:])}})
 
     emit({"kernels": [
         {"name": "pe_execute", "route": "cuda",
@@ -3437,10 +4282,13 @@ def main() -> int:
          "library_ms": flash["library_ms"], "shape": list(FLASH_PATH[:7]),
          "dtype": "bfloat16", "path_route": flash["route"],
          "path_launches": {"lm": flash_launches,
-                           "moe": moe_path["flash_launches"]},
-         "moe_shape": {k: flash["moe_shape"][k] for k in (
+                           "moe": moe_path["flash_launches"],
+                           "hubert": families["hubert_flash_launches"],
+                           "qwen2_vl": families["qwen2_vl_flash_launches"]},
+         **{key: {k: flash[key][k] for k in (
              "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "max_abs_err", "max_row_rel_err", "tflops")}},
+             "library_ms", "max_abs_err", "max_row_rel_err", "tflops",
+             "issued_tflops")} for key in FLASH_TIMED}},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "routes": {"ring": "rglru_ring_kernel (TMA ring of "
@@ -3463,6 +4311,10 @@ def main() -> int:
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(moe_path["flash_launches"] > 0,
           "the MoE path launched no flash_attention")
+    check(families["hubert_flash_launches"] > 0,
+          "HuBERT's encode launched no flash_attention")
+    check(families["qwen2_vl_flash_launches"] > 0,
+          "Qwen2-VL's vision prefill launched no flash_attention")
     check(rglru_launches > 0, "the LM path launched no rglru_scan")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Architectures the port runs: ``get_config(arch)`` / ``get_smoke(arch)``.
+"""Architectures the port runs, the JAX package's ten:
+``get_config(arch)`` / ``get_smoke(arch)``.
 
 Each module holds ``CONFIG`` (the published full-size config) and
 ``SMOKE`` (a reduced same-family config for CPU tests), copied verbatim
@@ -10,11 +11,14 @@ import importlib
 _MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "mixtral-8x7b": "mixtral_8x7b",
+    "xlstm-350m": "xlstm_350m",
     "qwen1.5-4b": "qwen1_5_4b",
     "granite-8b": "granite_8b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "smollm-360m": "smollm_360m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "hubert-xlarge": "hubert_xlarge",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,5 +1,6 @@
-"""Attention (the port's ``repro.models.attention``): GQA with RoPE,
-full / sliding-window / local variants, prefill and decode.
+"""Attention (the port's ``repro.models.attention``): GQA with RoPE or
+M-RoPE, full / sliding-window / local variants, causal or bidirectional,
+prefill and decode.
 
 Prefill runs the CUDA kernel ``flash_attention`` through the head-fold
 wrapper when ``cfg.use_kernels`` is set (its plain version on CPU
@@ -27,8 +28,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, attention_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Linear, Norm, apply_norm, apply_rope, \
-    cdt, linear
+from repro_torch.models.layers import Linear, Norm, apply_mrope, \
+    apply_norm, apply_rope, cdt, linear
 
 
 class KVCache(NamedTuple):
@@ -37,7 +38,8 @@ class KVCache(NamedTuple):
 
 
 class AttnMixer(nn.Module):
-    """``norm``, ``wq``, ``wk``, ``wv``, ``wo`` as in the reference."""
+    """``norm``, ``wq``, ``wk``, ``wv``, ``wo`` as in the reference
+    (``wo`` with a bias under LayerNorm)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -47,7 +49,8 @@ class AttnMixer(nn.Module):
         self.wq = Linear(d, q_dim, cfg, device, bias=cfg.attn_bias)
         self.wk = Linear(d, kv_dim, cfg, device, bias=cfg.attn_bias)
         self.wv = Linear(d, kv_dim, cfg, device, bias=cfg.attn_bias)
-        self.wo = Linear(q_dim, d, cfg, device)
+        self.wo = Linear(q_dim, d, cfg, device,
+                         bias=cfg.norm == "layernorm")
 
 
 def _fold_gqa(q, n_kv: int):
@@ -231,8 +234,14 @@ def attn_block(p: AttnMixer, x, cfg: ModelConfig, kind: str, *,
     v = linear(p.wv, hx, cfg).reshape(b, s, hkv, hd)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        pos3 = positions if positions.ndim == 3 else positions.expand(
+            3, *positions.shape)
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:                                     # decode
         slot = cache_pos if window == 0 else cache_pos % cache.k.shape[1]

@@ -2,13 +2,11 @@
 ``repro.models.config``).
 
 Configs are frozen dataclasses with the reference's fields and defaults,
-less the fields of paths the port does not run yet (M-RoPE, the GELU
-MLP, LayerNorm, the modality frontends, the mLSTM chunk): the ported
-config files copy over verbatim, and a config that needs one of those
-paths cannot be built. The MoE fields (``n_experts``, ``topk``,
-``capacity_factor``, ``router_aux_coef``) are the reference's, with its
-defaults; ``n_experts`` > 0 puts ``models.moe`` in place of each
-attention layer's MLP. ``use_pallas`` becomes ``use_kernels``, on by
+so that its config files copy over verbatim. ``n_experts`` > 0 puts
+``models.moe`` in place of each attention layer's MLP; ``mlp``,
+``norm``, ``mrope`` and ``frontend`` select HuBERT's and Qwen2-VL's
+paths, and the ``mlstm``/``slstm`` block kinds xLSTM's. ``use_pallas``
+becomes ``use_kernels``, on by
 default: prefill attention and the RG-LRU scan go through the port's
 hand-written CUDA kernels (their plain versions for CPU tensors); False
 runs the plain PyTorch path on whatever device the model lives on, and
@@ -21,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -39,8 +37,10 @@ class ModelConfig:
     # --- attention options ---
     attn_bias: bool = False        # Qwen-style QKV bias
     window: int = 0                # 0 = full attention; >0 = sliding window
-    causal: bool = True
+    causal: bool = True            # False for encoder-only (HuBERT)
     rope_theta: float = 10_000.0
+    mrope: bool = False            # Qwen2-VL multimodal RoPE
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
 
     # --- MoE options ---
     n_experts: int = 0
@@ -50,17 +50,22 @@ class ModelConfig:
 
     # --- layer pattern ---
     # Unit of block kinds repeated down the stack; remainder handled
-    # explicitly. Kinds: attn | swa | local | rglru (mlstm | slstm: not
-    # ported)
+    # explicitly. Kinds: attn | swa | local | mlstm | slstm | rglru
     pattern_unit: Tuple[str, ...] = ("attn",)
 
     # --- recurrent widths ---
     lru_width: int = 0             # RG-LRU width (0 -> d_model)
     conv_width: int = 4
 
-    # --- MLP (SwiGLU) / norm (RMSNorm) ---
+    # --- MLP / norm ---
+    mlp: str = "swiglu"            # swiglu | gelu | none
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+
+    # --- modality frontend stub ---
+    frontend: Optional[str] = None  # None | audio_frames | vision_patches
+    d_frontend: int = 0
 
     # --- numerics ---
     compute_dtype: str = "bfloat16"
@@ -72,6 +77,7 @@ class ModelConfig:
     use_kernels: bool = True       # the hand-written CUDA kernels
     attn_q_chunk: int = 512        # blocked attention's q and kv tiles
     attn_kv_chunk: int = 1024
+    mlstm_chunk: int = 256
 
     @property
     def hd(self) -> int:

@@ -1,5 +1,6 @@
 """Shared layer math (the port's ``repro.models.layers``): norms, linear
-layers, the MLP, rotary embeddings, embedding, unembedding and the loss.
+layers, the MLPs, rotary embeddings (RoPE and Qwen2-VL's M-RoPE),
+embedding, unembedding and the loss.
 
 Parameters live in ``nn.Module`` containers whose leaves keep the
 reference's names (``norm.scale``, ``wq.w``, ``wi.b``, ...). They are
@@ -43,22 +44,27 @@ class Linear(nn.Module):
 
 
 class Norm(nn.Module):
-    """RMSNorm's ``scale``."""
+    """``scale`` and, for LayerNorm (or with ``bias``), ``bias``."""
 
-    def __init__(self, d: int, cfg: ModelConfig, device):
+    def __init__(self, d: int, cfg: ModelConfig, device, bias=None):
         super().__init__()
+        if bias is None:
+            bias = cfg.norm == "layernorm"
         self.scale = param((d,), cfg, device)
+        self.bias = param((d,), cfg, device) if bias else None
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``norm``, ``wi`` (fused gate|up), ``wo``."""
+    """``norm``, ``wi``, ``wo``: SwiGLU's ``wi`` is the fused gate|up;
+    the GELU MLP's ``wi`` and ``wo`` carry biases."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
+        gelu = cfg.mlp != "swiglu"
         self.norm = Norm(d, cfg, device)
-        self.wi = Linear(d, 2 * ff, cfg, device)
-        self.wo = Linear(ff, d, cfg, device)
+        self.wi = Linear(d, ff if gelu else 2 * ff, cfg, device, bias=gelu)
+        self.wo = Linear(ff, d, cfg, device, bias=gelu)
 
 
 class Embed(nn.Module):
@@ -72,10 +78,27 @@ class Embed(nn.Module):
 # ---------------------------------------------------------------------------
 
 def apply_norm(p: Norm, x, cfg: ModelConfig):
-    """RMSNorm, computed in f32, returned in compute dtype."""
+    """RMSNorm or LayerNorm, computed in f32, returned in compute dtype."""
     xf = x.float()
-    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + cfg.norm_eps)
-    return (xf * p.scale.float()).to(cdt(cfg))
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True)
+                              + cfg.norm_eps)
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    out = xf * p.scale.float()
+    if p.bias is not None:
+        out = out + p.bias.float()
+    return out.to(cdt(cfg))
+
+
+def rms_head_norm(scale, x, eps: float = 1e-6):
+    """Per-head RMS norm of the mLSTM's output: computed in f32, returned
+    in ``x``'s dtype."""
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
 
 
 def linear(p: Linear, x, cfg: ModelConfig):
@@ -87,8 +110,13 @@ def linear(p: Linear, x, cfg: ModelConfig):
 
 def apply_mlp(p: MLP, x, cfg: ModelConfig):
     h = apply_norm(p.norm, x, cfg)
-    g, u = linear(p.wi, h, cfg).chunk(2, dim=-1)              # gate first
-    return linear(p.wo, F.silu(g) * u, cfg)
+    if cfg.mlp == "swiglu":
+        g, u = linear(p.wi, h, cfg).chunk(2, dim=-1)          # gate first
+        h = F.silu(g) * u
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(linear(p.wi, h, cfg), approximate="tanh")
+    return linear(p.wo, h, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +131,26 @@ def _rope_freqs(hd: int, theta: float, device):
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, hd), positions: broadcastable to (..., S). The two
     halves of the head dim rotate together (not interleaved pairs)."""
+    inv = _rope_freqs(x.shape[-1], theta, x.device)           # (hd/2,)
+    return _rotate(x, positions[..., None].float() * inv)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL's multimodal RoPE. positions3: (3, ..., S), the (t, h, w)
+    streams; the hd/2 frequencies are split into ``sections`` (summing to
+    hd/2), each rotated by its own stream."""
     hd = x.shape[-1]
     inv = _rope_freqs(hd, theta, x.device)                    # (hd/2,)
-    ang = positions[..., None].float() * inv                  # (..., S, hd/2)
+    # the stream of each frequency, by section
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device), output_size=hd // 2)
+    pos = positions3.index_select(0, sec_id)                  # (hd/2, ..., S)
+    return _rotate(x, pos.movedim(0, -1).float() * inv)       # (..., S, hd/2)
+
+
+def _rotate(x, ang):
+    """x (..., S, H, hd) rotated by angles (..., S, hd/2), in f32."""
     cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

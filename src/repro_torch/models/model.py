@@ -6,7 +6,15 @@ The reference stacks each homogeneous layer group and runs it with
 order of ``cfg.pattern()``, which is the reference's group order) and
 runs them as a Python loop. Caches are a list with one entry per layer in
 place of the reference's stacked ``repeats`` dim: a ``KVCache`` for an
-attention layer, an ``RGLRUState`` for an RG-LRU layer.
+attention layer, an ``RGLRUState``, ``MLSTMState`` or ``SLSTMState`` for
+a recurrent one.
+
+The stack takes token ids through ``embed`` or, for a model with a
+modality frontend, frame or patch embeddings through ``frontend_proj``
+(HuBERT has no ``embed``). Positions are (B, S), or (3, B, S) for
+M-RoPE's (t, h, w) streams; left out, every stream counts 0.. S-1 (from
+``cache_pos`` in decode), as in the reference. ``encode`` is the
+encoder-only entry point (HuBERT): full-sequence logits.
 
 An attention layer's MLP is the MoE FFN (``models.moe``) when
 ``cfg.n_experts`` is set; its load-balancing loss, summed over the
@@ -39,23 +47,25 @@ from repro_torch.models.attention import AttnMixer, KVCache, attn_block, \
     remat_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Linear, Norm, apply_mlp, \
-    apply_norm, cdt, cross_entropy, embed_tokens, unembed
+    apply_norm, cdt, cross_entropy, embed_tokens, linear, unembed
 from repro_torch.models.moe import MoE, apply_moe
-from repro_torch.models.schema import ATTN_KINDS, check_ported, layer_groups
+from repro_torch.models.schema import ATTN_KINDS, layer_groups
+
+_MIXERS = {"rglru": rec.RGLRUMixer, "mlstm": rec.MLSTMMixer,
+           "slstm": rec.SLSTMMixer}
+_BLOCKS = {"rglru": rec.rglru_block, "mlstm": rec.mlstm_block,
+           "slstm": rec.slstm_block}
 
 
 class Block(nn.Module):
     """One layer: ``mixer`` and, for attention kinds with d_ff > 0,
-    ``mlp``: the SwiGLU MLP, or the MoE FFN when ``cfg.n_experts`` is set
-    (RG-LRU blocks carry no MLP, as in the reference)."""
+    ``mlp``: the SwiGLU or GELU MLP, or the MoE FFN when ``cfg.n_experts``
+    is set (recurrent blocks carry no MLP, as in the reference)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device):
         super().__init__()
         self.kind = kind
-        if kind == "rglru":
-            self.mixer = rec.RGLRUMixer(cfg, device)
-        else:
-            self.mixer = AttnMixer(cfg, device)
+        self.mixer = _MIXERS.get(kind, AttnMixer)(cfg, device)
         self.mlp = None
         if cfg.d_ff > 0 and kind in ATTN_KINDS:
             self.mlp = (MoE(cfg, device) if cfg.n_experts
@@ -63,15 +73,19 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """``embed``, ``layers``, ``final_norm`` and, unless the embedding is
-    tied, ``lm_head``. Parameters are left uninitialised: fill them with
-    ``convert.params_from_reference`` (or build with ``init_model``)."""
+    """``frontend_proj`` (with a modality frontend), ``embed`` (unless the
+    frontend is audio frames), ``layers``, ``final_norm`` and, unless the
+    embedding is tied, ``lm_head``. Parameters are left uninitialised:
+    fill them with ``convert.params_from_reference`` (or build with
+    ``init_model``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         device = _device.resolve(device)
-        self.embed = Embed(cfg, device)
+        self.frontend_proj = (Linear(cfg.d_frontend, cfg.d_model, cfg,
+                                     device) if cfg.frontend else None)
+        self.embed = (None if cfg.frontend == "audio_frames"
+                      else Embed(cfg, device))
         self.layers = nn.ModuleList(Block(cfg, kind, device)
                                     for kind in cfg.pattern())
         self.final_norm = Norm(cfg.d_model, cfg, device)
@@ -80,7 +94,7 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.w.device
+        return self.final_norm.scale.device
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +109,26 @@ def _attn_cache_init(cfg: ModelConfig, kind: str, b: int, cap: int, device):
                    torch.zeros(shape, dtype=cdt(cfg), device=device))
 
 
+def _mixer_cache_init(cfg: ModelConfig, kind: str, b: int, cap: int,
+                      device):
+    d = cfg.d_model
+    if kind in ATTN_KINDS:
+        return _attn_cache_init(cfg, kind, b, cap, device)
+    if kind == "mlstm":
+        de = 2 * d
+        return rec.mlstm_state_init(b, cfg.n_heads, de // cfg.n_heads, de,
+                                    device)
+    if kind == "slstm":
+        return rec.slstm_state_init(b, d, device)
+    if kind == "rglru":
+        return rec.rglru_state_init(b, cfg.lru_d, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cap: int, device=None):
     """Empty decode caches, one per layer."""
     device = _device.resolve(device)
-    return [rec.rglru_state_init(batch, cfg.lru_d, device) if kind == "rglru"
-            else _attn_cache_init(cfg, kind, batch, cap, device)
+    return [_mixer_cache_init(cfg, kind, batch, cap, device)
             for kind in cfg.pattern()]
 
 
@@ -135,8 +164,8 @@ def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
                  cache_pos, mode: str, prefill_pad: int = 0):
     """One layer. Returns (x, new_cache, aux): aux is the MoE FFN's
     load-balancing loss, a 0-dim f32 zero without one."""
-    if block.kind == "rglru":
-        out, c_new = rec.rglru_block(block.mixer, x, cfg, cache)
+    if block.kind in _BLOCKS:
+        out, c_new = _BLOCKS[block.kind](block.mixer, x, cfg, cache)
     else:
         out, c_new = attn_block(block.mixer, x, cfg, block.kind,
                                 positions=positions, cache=cache,
@@ -230,16 +259,20 @@ def _train_stack(model: LM, cfg: ModelConfig, x, positions):
     return x, aux
 
 
-def forward(model: LM, cfg: ModelConfig, *, tokens, positions=None,
-            cache: Optional[List] = None, cache_pos: Optional[int] = None,
-            mode: str = "prefill", prefill_pad: int = 0):
-    """Run the stack. Returns (x_final, new_cache, aux_loss).
+def forward(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None, cache: Optional[List] = None,
+            cache_pos: Optional[int] = None, mode: str = "prefill",
+            prefill_pad: int = 0):
+    """Run the stack on ``tokens`` (B, S) or ``embeds`` (B, S,
+    d_frontend). Returns (x_final, new_cache, aux_loss).
 
     mode: train (no caches; ``new_cache`` is None) | prefill (produce
-    caches) | decode (consume them). ``aux_loss`` is the MoE layers'
-    summed load-balancing loss (a 0-dim f32 zero without MoE).
+    caches) | decode (consume them) | encode (inference without caches:
+    ``encode``'s route when no gradient is wanted; ``new_cache`` is
+    None). ``aux_loss`` is the MoE layers' summed load-balancing loss (a
+    0-dim f32 zero without MoE).
     """
-    if mode not in ("train", "prefill", "decode"):
+    if mode not in ("train", "prefill", "decode", "encode"):
         raise ValueError(f"mode={mode!r}")
     if mode == "train" and cfg.use_kernels:
         raise NotImplementedError(
@@ -247,12 +280,20 @@ def forward(model: LM, cfg: ModelConfig, *, tokens, positions=None,
             "flash_attention and rglru_scan have no backward (nor have the "
             "JAX package's Pallas kernels); train with use_kernels=False "
             "(ROADMAP.md, queue item 11)")
-    x = embed_tokens(model.embed, tokens, cfg)
+    if embeds is not None:
+        x = linear(model.frontend_proj, embeds.to(cdt(cfg)), cfg)
+    elif model.embed is None:
+        # the reference fails here too, on its missing "embed" leaf
+        raise ValueError(f"{cfg.name} has no token embedding: it takes "
+                         "frame embeddings (embeds=), not token ids")
+    else:
+        x = embed_tokens(model.embed, tokens, cfg)
     if positions is None:
         base = torch.arange(x.shape[1], device=x.device)[None, :]
         if mode == "decode":
             base = base + cache_pos
-        positions = base.expand(x.shape[0], -1)
+        positions = base.expand(*((3,) if cfg.mrope else ()), x.shape[0],
+                                -1)
     if mode == "train":
         x, aux = _train_stack(model, cfg, x, positions)
         return apply_norm(model.final_norm, x, cfg), None, aux
@@ -265,7 +306,7 @@ def forward(model: LM, cfg: ModelConfig, *, tokens, positions=None,
         aux = aux + a
         new_cache.append(c_new)
     x = apply_norm(model.final_norm, x, cfg)
-    return x, new_cache, aux
+    return x, (None if mode == "encode" else new_cache), aux
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +338,11 @@ def lm_logits(model: LM, cfg: ModelConfig, x):
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch):
-    """batch: {tokens, labels?, positions?} tensors on the model's
-    device. Without labels, tokens are shifted here (causal LM)."""
-    tokens = batch["tokens"]
+    """batch: {tokens | embeds, labels?, positions?} tensors on the
+    model's device. Without labels, tokens are shifted here (causal
+    LM)."""
+    tokens = batch.get("tokens")
+    embeds = batch.get("embeds")
     positions = batch.get("positions")
     if "labels" in batch:                   # pipeline provides shifted labels
         labels = batch["labels"]
@@ -308,8 +351,8 @@ def loss_fn(model: LM, cfg: ModelConfig, batch):
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         if positions is not None:
             positions = positions[..., :-1]
-    x, _, aux = forward(model, cfg, tokens=inputs, positions=positions,
-                        mode="train")
+    x, _, aux = forward(model, cfg, tokens=inputs, embeds=embeds,
+                        positions=positions, mode="train")
     return chunked_lm_loss(model, cfg, x, labels) + aux
 
 
@@ -324,11 +367,12 @@ def decay_ndims(model: LM) -> dict:
             for name, p in model.named_parameters()}
 
 
-def prefill(model: LM, cfg: ModelConfig, *, tokens, positions=None,
-            pad_to: int = 0):
+def prefill(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None, pad_to: int = 0):
     """Returns (last_token_logits (B, V), cache)."""
-    x, cache, _ = forward(model, cfg, tokens=tokens, positions=positions,
-                          mode="prefill", prefill_pad=pad_to)
+    x, cache, _ = forward(model, cfg, tokens=tokens, embeds=embeds,
+                          positions=positions, mode="prefill",
+                          prefill_pad=pad_to)
     return lm_logits(model, cfg, x[:, -1:, :])[:, 0, :], cache
 
 
@@ -338,3 +382,21 @@ def decode_step(model: LM, cfg: ModelConfig, cache, token, pos: int):
     x, new_cache, _ = forward(model, cfg, tokens=token, cache=cache,
                               cache_pos=pos, mode="decode")
     return lm_logits(model, cfg, x)[:, 0, :], new_cache
+
+
+def encode(model: LM, cfg: ModelConfig, embeds):
+    """Encoder-only forward (HuBERT): logits (B, S, V) of every frame.
+
+    The reference runs its train-mode stack here. When a gradient is
+    wanted (autograd on, and ``embeds`` or a parameter requires grad), so
+    does the port, and ``use_kernels=True`` raises as in training (the
+    kernels have no backward). Otherwise the same layers run as an
+    inference pass without caches, through ``flash_attention`` when
+    ``cfg.use_kernels`` is set."""
+    wants_grad = torch.is_grad_enabled() and (
+        embeds.requires_grad or any(p.requires_grad
+                                    for p in model.parameters()))
+    with torch.set_grad_enabled(wants_grad):
+        x, _, _ = forward(model, cfg, embeds=embeds,
+                          mode="train" if wants_grad else "encode")
+        return lm_logits(model, cfg, x)

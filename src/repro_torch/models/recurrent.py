@@ -1,11 +1,23 @@
-"""Griffin's RG-LRU recurrent block (the RG-LRU part of the port's
-``repro.models.recurrent``; mLSTM and sLSTM are not ported yet).
+"""Recurrent mixers (the port's ``repro.models.recurrent``): xLSTM's
+mLSTM and sLSTM, and Griffin's RG-LRU.
 
-Prefill (S > 1) runs the recurrence through the CUDA kernel
-``rglru_scan`` when ``cfg.use_kernels`` is set (its plain version on CPU
-tensors), and through ``linear_scan`` otherwise. A decode step (S = 1) is
-the plain elementwise update, as in the reference. States live in the
-layer cache.
+  * mLSTM: the chunkwise-parallel form, quadratic inside a chunk of
+    ``cfg.mlstm_chunk`` steps and a (hd, hd) matrix memory per head
+    across chunks, with log-space stabilisers. S is padded to a chunk
+    multiple; a decode step is one chunk of 1.
+  * sLSTM: strictly sequential (h_{t-1} feeds the gates), a Python loop
+    over S in blocks of isqrt(S) steps; S is padded with zero inputs to
+    a whole number of blocks, and the final state is the one after the
+    padded steps, as in the reference.
+  * RG-LRU: prefill (S > 1) runs the recurrence through the CUDA kernel
+    ``rglru_scan`` when ``cfg.use_kernels`` is set (its plain version on
+    CPU tensors), and through ``linear_scan`` otherwise; a decode step
+    (S = 1) is the plain elementwise update.
+
+The mLSTM and sLSTM are torch operations, as the reference computes them
+in plain XLA (no Pallas kernel). Under autograd each mLSTM chunk and each
+sLSTM block is recomputed in the backward (the reference's
+``jax.checkpoint`` on them). States live in the layer cache.
 """
 from __future__ import annotations
 
@@ -16,10 +28,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.models.attention import remat_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear, Norm, apply_norm, cdt, \
-    linear, param
+    linear, param, rms_head_norm
 
+LOG_EPS = -30.0
 C_LRU = 8.0
 
 
@@ -59,6 +73,224 @@ def causal_conv(p: Conv, x, state: Optional[ConvState]):
 def conv_state_init(b: int, d: int, device):
     return ConvState(torch.zeros((b, 3, d), dtype=torch.float32,
                                  device=device))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor                     # (B, H, hd, hd) memory (m-scaled)
+    n: torch.Tensor                     # (B, H, hd)
+    m: torch.Tensor                     # (B, H) log-space stabiliser
+    conv: ConvState
+
+
+def mlstm_state_init(b: int, h: int, hd: int, de: int, device):
+    f32 = dict(dtype=torch.float32, device=device)
+    return MLSTMState(torch.zeros((b, h, hd, hd), **f32),
+                      torch.zeros((b, h, hd), **f32),
+                      torch.full((b, h), LOG_EPS, **f32),
+                      conv_state_init(b, de, device))
+
+
+class MLSTMMixer(nn.Module):
+    """``norm``, ``wup`` (fused x|gate), ``conv``, ``wq``, ``wk``, ``wv``,
+    ``wif`` (i/f gate pre-activations), ``onorm``, ``wdown``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        de = 2 * d                      # expansion 2 (xLSTM paper)
+        self.norm = Norm(d, cfg, device)
+        self.wup = Linear(d, 2 * de, cfg, device)
+        self.conv = Conv(cfg.conv_width, de, cfg, device)
+        self.wq = Linear(de, de, cfg, device)
+        self.wk = Linear(de, de, cfg, device)
+        self.wv = Linear(de, de, cfg, device)
+        self.wif = Linear(de, 2 * h, cfg, device)
+        self.onorm = Norm(de, cfg, device, bias=False)
+        self.wdown = Linear(de, d, cfg, device)
+
+
+def _mlstm_chunk(carry, inp):
+    """One chunk of the chunkwise-parallel stabilised mLSTM.
+
+    carry: (C, n, m) with C (B,H,hd,hd); inp: q, k, v (B,c,H,hd) with k
+    pre-scaled by hd^-0.5, logi/logf (B,c,H). All f32.
+    """
+    C_p, n_p, m_p = carry
+    q, k, v, logi, logf = inp
+    c = q.shape[1]
+    fc = torch.cumsum(logf, dim=1)                            # (B,c,H)
+    ftot = fc[:, -1]                                          # (B,H)
+    g = torch.cummax(logi - fc, dim=1).values                 # (B,c,H)
+    m_t = fc + torch.maximum(m_p[:, None], g)                 # (B,c,H)
+
+    # decay matrix D[t,s] = exp(F_t - F_s + logi_s - m_t), s <= t
+    log_d = (fc[:, :, None] - fc[:, None, :] + logi[:, None, :]
+             - m_t[:, :, None])                               # (B,t,s,H)
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    dmat = torch.where(tri[None, :, :, None], torch.exp(log_d), 0.0)
+
+    s_qk = torch.einsum("bthd,bshd->btsh", q, k)              # (B,t,s,H)
+    intra = torch.einsum("btsh,bshd->bthd", s_qk * dmat, v)
+    w_inter = torch.exp(fc + m_p[:, None] - m_t)              # (B,c,H)
+    inter = torch.einsum("bthd,bhde->bthe", q, C_p) * w_inter[..., None]
+    n_t = (w_inter[..., None] * n_p[:, None]
+           + torch.einsum("btsh,bshd->bthd", dmat, k))
+    qn = torch.einsum("bthd,bthd->bth", q, n_t).abs()
+    denom = torch.maximum(qn, torch.exp(-m_t))
+    h = (intra + inter) / denom[..., None]                    # (B,c,H,hd)
+
+    # chunk-end state
+    m_new = m_t[:, -1]                                        # (B,H)
+    w_c = torch.exp(ftot[:, None] - fc + logi - m_new[:, None])  # (B,s,H)
+    decay = torch.exp(ftot + m_p - m_new)
+    C_new = (decay[..., None, None] * C_p
+             + torch.einsum("bsh,bshd,bshe->bhde", w_c, k, v))
+    n_new = (decay[..., None] * n_p
+             + torch.einsum("bsh,bshd->bhd", w_c, k))
+    return (C_new, n_new, m_new), h
+
+
+def mlstm_scan(q, k, v, logi, logf, state: MLSTMState, chunk: int):
+    """q, k, v: (B,S,H,hd) f32; logi/logf: (B,S,H) f32. Returns (h,
+    (C, n, m)).
+
+    S is padded to a chunk multiple with the i-gate at 2·LOG_EPS (no
+    state contribution) and the f-gate at 1 (state kept); the padded
+    outputs are sliced off."""
+    s = q.shape[1]
+    ck = min(chunk, s)
+    pad = (-s) % ck
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+        logi = F.pad(logi, (0, 0, 0, pad), value=2 * LOG_EPS)
+        logf = F.pad(logf, (0, 0, 0, pad))
+    carry = (state.c, state.n, state.m)
+    hs = []
+    for i in range(0, s + pad, ck):
+        sl = slice(i, i + ck)
+        carry, h = remat_chunk(_mlstm_chunk, carry,
+                               (q[:, sl], k[:, sl], v[:, sl], logi[:, sl],
+                                logf[:, sl]))
+        hs.append(h)
+    return torch.cat(hs, dim=1)[:, :s], carry
+
+
+def mlstm_block(p: MLSTMMixer, x, cfg: ModelConfig,
+                state: Optional[MLSTMState]):
+    """The mLSTM block. x: (B,S,d). Returns (out, new_state)."""
+    b, s, d = x.shape
+    de = 2 * d
+    h = cfg.n_heads
+    hd = de // h
+    hx = apply_norm(p.norm, x, cfg)
+    u, g = linear(p.wup, hx, cfg).chunk(2, dim=-1)            # (B,S,de) x2
+    u, conv_state = causal_conv(p.conv, u,
+                                state.conv if state is not None else None)
+    u = F.silu(u)
+    q = linear(p.wq, u, cfg).reshape(b, s, h, hd).float()
+    k = linear(p.wk, u, cfg).reshape(b, s, h, hd).float()
+    v = linear(p.wv, u, cfg).reshape(b, s, h, hd).float()
+    k = k * hd ** -0.5
+    gates = linear(p.wif, u, cfg).float()                     # (B,S,2H)
+    logi, f_pre = gates[..., :h], gates[..., h:]
+    # log sigmoid: the reference's -softplus(-f), which jax computes
+    # without torch's softplus switch to the identity above 20
+    logf = F.logsigmoid(f_pre)
+
+    st = state if state is not None else mlstm_state_init(b, h, hd, de,
+                                                          x.device)
+    hs, (c_f, n_f, m_f) = mlstm_scan(q, k, v, logi, logf, st,
+                                     cfg.mlstm_chunk)
+    hs = rms_head_norm(p.onorm.scale.reshape(h, hd), hs.to(cdt(cfg)))
+    out = hs.reshape(b, s, de) * F.silu(g)
+    return linear(p.wdown, out, cfg), MLSTMState(c_f, n_f, m_f, conv_state)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor                     # (B, d) f32
+    n: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor
+
+
+def slstm_state_init(b: int, d: int, device):
+    z = torch.zeros((b, d), dtype=torch.float32, device=device)
+    return SLSTMState(z, z, z, torch.full((b, d), LOG_EPS,
+                                          dtype=torch.float32,
+                                          device=device))
+
+
+class SLSTMMixer(nn.Module):
+    """``norm``, ``wg`` (i|f|z|o of x_t), ``rg`` (H, hd, 4hd), the
+    per-head recurrent weights, ``bg``, ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        hd = d // h
+        self.norm = Norm(d, cfg, device)
+        self.wg = Linear(d, 4 * d, cfg, device)
+        self.rg = param((h, hd, 4 * hd), cfg, device)
+        self.bg = param((4 * d,), cfg, device)
+        self.wo = Linear(d, d, cfg, device)
+
+
+def slstm_step(carry, g_t, rg):
+    """One sLSTM step: carry (c, n, h, m), each (B, d) f32; g_t (B, 4d)
+    the input's gate pre-activations; rg (H, hd, 4hd) f32."""
+    c, n, hprev, m = carry
+    b, d = c.shape
+    h, hd = rg.shape[:2]
+    rec = torch.einsum("bhd,hde->bhe", hprev.reshape(b, h, hd),
+                       rg).reshape(b, 4 * d)
+    gi, gf, gz, go = (g_t + rec).chunk(4, dim=-1)
+    m_new = torch.maximum(gf + m, gi)                         # exp f-gate
+    ip = torch.exp(gi - m_new)
+    fp = torch.exp(gf + m - m_new)
+    c_new = fp * c + ip * torch.tanh(gz)
+    n_new = fp * n + ip
+    h_new = torch.sigmoid(go) * c_new / torch.clamp(n_new, min=1e-6)
+    return c_new, n_new, h_new, m_new
+
+
+def _slstm_steps(carry, g_blk, rg):
+    """``slstm_step`` over the steps of g_blk (B, blk, 4d). Returns (the
+    carry, h of each step (B, blk, d))."""
+    hs = []
+    for t in range(g_blk.shape[1]):
+        carry = slstm_step(carry, g_blk[:, t], rg)
+        hs.append(carry[2])
+    return carry, torch.stack(hs, dim=1)
+
+
+def slstm_block(p: SLSTMMixer, x, cfg: ModelConfig,
+                state: Optional[SLSTMState]):
+    """The sequential sLSTM with a per-head block-diagonal recurrence.
+    x: (B,S,d). Returns (out, new_state)."""
+    b, s, d = x.shape
+    hx = apply_norm(p.norm, x, cfg)
+    gx = (linear(p.wg, hx, cfg) + p.bg.to(cdt(cfg))).float()  # (B,S,4d)
+    st = state if state is not None else slstm_state_init(b, d, x.device)
+    rg = p.rg.float()
+    # blocks of isqrt(S) steps (the reference's two-level checkpoint);
+    # the padded steps run too and move the final state
+    blk = max(1, int(s ** 0.5))
+    nb = -(-s // blk)
+    gx = F.pad(gx, (0, 0, 0, nb * blk - s))
+    carry, hs = tuple(st), []
+    for j in range(0, nb * blk, blk):
+        carry, h = remat_chunk(_slstm_steps, carry, gx[:, j:j + blk], rg)
+        hs.append(h)
+    hs = torch.cat(hs, dim=1)[:, :s].to(cdt(cfg))             # (B,S,d)
+    return linear(p.wo, hs, cfg), SLSTMState(*carry)
 
 
 # ---------------------------------------------------------------------------

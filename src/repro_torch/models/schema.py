@@ -10,11 +10,11 @@ leaves, in the reference's layout: each repeated layer group is stored
                         downloaded); ``convert.params_from_reference``
                         turns it into the port's modules.
 
-Ported: attn / swa / local blocks (with their SwiGLU MLP, or the MoE
-FFN when ``cfg.n_experts`` is set) and rglru blocks (no MLP, as in the
-reference), RMSNorm. mLSTM, sLSTM, M-RoPE, the modality frontends, the
-GELU MLP and LayerNorm (HuBERT's) are not ported yet (ROADMAP.md, "Next
-slices").
+Every block kind of the reference: attn / swa / local (with their
+SwiGLU or GELU MLP, or the MoE FFN when ``cfg.n_experts`` is set),
+rglru, mlstm and slstm (no MLP, as in the reference); RMSNorm or
+LayerNorm (with its bias, and a bias on attention's ``wo``); the
+modality frontend's ``frontend_proj``, and no ``embed`` for audio frames.
 """
 from __future__ import annotations
 
@@ -49,30 +49,37 @@ def _dense(d_in: int, d_out: int, *, bias: bool = False,
     return out
 
 
-def _norm(d: int) -> Dict[str, ParamSpec]:
-    return {"scale": ParamSpec((d,), "ones")}
+def _norm(d: int, kind: str) -> Dict[str, ParamSpec]:
+    out = {"scale": ParamSpec((d,), "ones")}
+    if kind == "layernorm":
+        out["bias"] = ParamSpec((d,), "zeros")
+    return out
 
 
 def _attn_schema(cfg: ModelConfig) -> Dict:
     d, hd = cfg.d_model, cfg.hd
     q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return {"norm": _norm(d),
+    return {"norm": _norm(d, cfg.norm),
             "wq": _dense(d, q_dim, bias=cfg.attn_bias),
             "wk": _dense(d, kv_dim, bias=cfg.attn_bias),
             "wv": _dense(d, kv_dim, bias=cfg.attn_bias),
-            "wo": _dense(q_dim, d)}
+            "wo": _dense(q_dim, d, bias=cfg.norm == "layernorm")}
 
 
 def _mlp_schema(cfg: ModelConfig) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"norm": _norm(d),
-            "wi": _dense(d, 2 * ff),                          # fused gate|up
-            "wo": _dense(ff, d)}
+    if cfg.mlp == "swiglu":
+        return {"norm": _norm(d, cfg.norm),
+                "wi": _dense(d, 2 * ff),                      # fused gate|up
+                "wo": _dense(ff, d)}
+    return {"norm": _norm(d, cfg.norm),                       # gelu (HuBERT)
+            "wi": _dense(d, ff, bias=True),
+            "wo": _dense(ff, d, bias=True)}
 
 
 def _moe_schema(cfg: ModelConfig) -> Dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"norm": _norm(d),
+    return {"norm": _norm(d, cfg.norm),
             "router": {"w": ParamSpec((d, e), "normal", 1.0 / math.sqrt(d))},
             "wi": ParamSpec((e, d, 2 * ff), "normal", 1.0 / math.sqrt(d)),
             "wo": ParamSpec((e, ff, d), "normal", 1.0 / math.sqrt(ff))}
@@ -82,7 +89,7 @@ def _rglru_schema(cfg: ModelConfig) -> Dict:
     """Griffin recurrent block: x -> [conv4 -> RG-LRU] * gelu(gate) -> out."""
     d, dr = cfg.d_model, cfg.lru_d
     return {
-        "norm": _norm(d),
+        "norm": _norm(d, cfg.norm),
         "wx": _dense(d, dr),                                  # recurrent in
         "wg": _dense(d, dr),                                  # gate branch
         "conv": {"w": ParamSpec((cfg.conv_width, dr), "normal", 0.1),
@@ -98,18 +105,46 @@ def _rglru_schema(cfg: ModelConfig) -> Dict:
     }
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    missing = [k for k in dict.fromkeys(cfg.pattern_unit)
-               if k not in ATTN_KINDS + ("rglru",)]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing} are not ported yet: the "
-            "xLSTM slice (mLSTM/sLSTM) is next (ROADMAP.md, next slices)")
+def _mlstm_schema(cfg: ModelConfig) -> Dict:
+    """xLSTM mLSTM block (up-proj x2, conv, per-head matrix memory)."""
+    d = cfg.d_model
+    de = 2 * d                        # expansion 2 (xLSTM paper)
+    h = cfg.n_heads
+    return {
+        "norm": _norm(d, cfg.norm),
+        "wup": _dense(d, 2 * de),                             # fused x|gate
+        "conv": {"w": ParamSpec((cfg.conv_width, de), "normal", 0.1),
+                 "b": ParamSpec((de,), "zeros")},
+        "wq": _dense(de, de),
+        "wk": _dense(de, de),
+        "wv": _dense(de, de),
+        "wif": _dense(de, 2 * h),                             # i/f pre-acts
+        "onorm": {"scale": ParamSpec((de,), "ones")},
+        "wdown": _dense(de, d),
+    }
+
+
+def _slstm_schema(cfg: ModelConfig) -> Dict:
+    """xLSTM sLSTM block: 4 gates, per-head block-diagonal recurrence."""
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    return {
+        "norm": _norm(d, cfg.norm),
+        "wg": _dense(d, 4 * d),                               # i|f|z|o of x_t
+        "rg": ParamSpec((h, hd, 4 * hd), "normal", 1.0 / math.sqrt(hd)),
+        "bg": ParamSpec((4 * d,), "zeros"),
+        "wo": _dense(d, d),
+    }
+
+
+_KIND_SCHEMA = {
+    "attn": _attn_schema, "swa": _attn_schema, "local": _attn_schema,
+    "rglru": _rglru_schema, "mlstm": _mlstm_schema, "slstm": _slstm_schema,
+}
 
 
 def _block_schema(cfg: ModelConfig, kind: str) -> Dict:
-    s = {"mixer": _rglru_schema(cfg) if kind == "rglru"
-         else _attn_schema(cfg)}
+    s = {"mixer": _KIND_SCHEMA[kind](cfg)}
     if cfg.d_ff > 0 and kind in ATTN_KINDS:
         s["mlp"] = _moe_schema(cfg) if cfg.n_experts else _mlp_schema(cfg)
     return s
@@ -135,16 +170,18 @@ def _stack(tree, n: int):
 
 
 def schema(cfg: ModelConfig) -> Dict:
-    check_ported(cfg)
     d = cfg.d_model
-    s: Dict = {"embed": {"w": ParamSpec((cfg.vocab_size, d), "normal",
-                                        0.02)}}
+    s: Dict = {}
+    if cfg.frontend:
+        s["frontend_proj"] = _dense(cfg.d_frontend, d)
+    if cfg.frontend != "audio_frames":          # HuBERT: no token embedding
+        s["embed"] = {"w": ParamSpec((cfg.vocab_size, d), "normal", 0.02)}
     groups = {}
     for gi, (unit, reps) in enumerate(layer_groups(cfg)):
         g = {str(i): _block_schema(cfg, kind) for i, kind in enumerate(unit)}
         groups[str(gi)] = _stack(g, reps)
     s["groups"] = groups
-    s["final_norm"] = _norm(d)
+    s["final_norm"] = _norm(d, cfg.norm)
     if not cfg.tie_embeddings:
         s["lm_head"] = _dense(d, cfg.vocab_size)
     return s

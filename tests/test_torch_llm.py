@@ -2,8 +2,10 @@
 ``Engine.generate`` (prefill + greedy decode, slot waves) on the
 RecurrentGemma and SmolLM SMOKE configs, weights carried across by
 ``convert.params_from_reference``, and on the SMOKE configs of the MoE
-family (Mixtral, with its window, and Llama-4-Scout) and the dense
-Granite and Qwen1.5 ones (QKV bias). Prompts are longer and shorter than
+family (Mixtral, with its window, and Llama-4-Scout), the dense
+Granite and Qwen1.5 ones (QKV bias), xLSTM-350M (mLSTM and sLSTM
+states through left-padded waves) and Qwen2-VL-72B (M-RoPE, every stream
+on the token positions). Prompts are longer and shorter than
 the SMOKE window of 16 and come in two waves, so the window cache takes
 both of its branches and ring decode crosses the wrap.
 
@@ -83,7 +85,8 @@ def _recorded(engine, prompts, max_new):
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m",
                                   "mixtral-8x7b", "llama4-scout-17b-a16e",
                                   "granite-8b", "qwen1.5-0.5b",
-                                  "qwen1.5-4b"])
+                                  "qwen1.5-4b", "xlstm-350m",
+                                  "qwen2-vl-72b"])
 def test_generate_matches_the_reference_engine(arch, use_kernels):
     """``use_kernels`` on the port, ``use_pallas`` on the reference: the
     logits of every prefill and decode step agree, and so do the tokens."""

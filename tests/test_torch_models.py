@@ -18,7 +18,7 @@ from repro.models import model as JM
 from repro.models import recurrent as JR
 from repro.models.config import ModelConfig as JaxConfig
 from repro_torch.configs import get_smoke
-from repro_torch.convert import load_tree
+from repro_torch.convert import load_tree, params_from_reference
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -79,20 +79,31 @@ def test_apply_norm():
                                          ("pattern_unit", ("mlstm",)),
                                          ("pattern_unit", ("attn", "slstm"))])
 def test_unported_options_raise(field, value):
-    """An unported block kind is refused naming ROADMAP; the options of
-    the other unported paths are no fields of the port's config, so a
-    config that sets one cannot be built. MoE is ported: its options are
-    fields, and a config that sets them builds a model with MoE layers."""
+    """The options that were once refused are ported: a config that sets
+    one (LayerNorm, the GELU MLP, MoE, mLSTM or sLSTM blocks) builds the
+    port's model, and its prefill logits and decode step equal the
+    reference's within 1e-4 (a whole model's logits, as the LM tests
+    hold them; the layers alone are held to 1e-5 above and in the
+    families' own test files)."""
+    cfg = CFG.replace(**{field: value},
+                      **({"topk": 2} if field == "n_experts" else {}))
+    tree = init_numpy(cfg, 0)
+    model = params_from_reference(tree, cfg, "cpu")
     if field == "n_experts":
-        model = M.LM(CFG.replace(n_experts=value, topk=2), "cpu")
         assert any(type(b.mlp).__name__ == "MoE" for b in model.layers)
-        return
-    if field != "pattern_unit":
-        with pytest.raises(TypeError, match=field):
-            CFG.replace(**{field: value})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.LM(CFG.replace(**{field: value}), "cpu")
+    elif field == "pattern_unit":
+        assert {b.kind for b in model.layers} == set(value)
+    jcfg, jparams = jax_cfg(cfg), jx(tree)
+    toks = np.random.default_rng(16).integers(0, cfg.vocab_size, (2, 20))
+    logits, cache = M.prefill(model, cfg, tokens=torch.from_numpy(toks),
+                              pad_to=22)
+    jlogits, jcache = JM.prefill(jparams, jcfg, tokens=jnp.asarray(toks),
+                                 pad_to=22)
+    close(logits, jlogits, 1e-4)
+    nxt = np.asarray(jlogits).argmax(-1)[:, None]
+    logits, _ = M.decode_step(model, cfg, cache, torch.from_numpy(nxt), 20)
+    jlogits, _ = JM.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt), 20)
+    close(logits, jlogits, 1e-4)
 
 
 def test_apply_rope_halves_not_interleaved():

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as jax_arch_ids
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke as jax_smoke
 from repro.models.config import ModelConfig as JaxConfig
@@ -266,8 +267,11 @@ def test_decay_ndims_are_the_stacked_tree_ndims(arch):
 # ---------------------------------------------------------------------------
 
 def test_the_port_runs_seven_architectures():
-    assert len(ARCH_IDS) == 7
+    """The port's registry holds the JAX package's ten architectures
+    (seven once; the xLSTM, HuBERT and Qwen2-VL configs since)."""
+    assert len(ARCH_IDS) == 10
     assert set(NEW_ARCHS) <= set(ARCH_IDS)
+    assert ARCH_IDS == jax_arch_ids
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

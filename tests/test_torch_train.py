@@ -2,7 +2,8 @@
 compute: the cross entropy and the chunked LM loss, blocked and windowed
 attention (also against the port's full-matrix ``plain_attention``), the
 loss (with the MoE layers' aux loss) and every gradient of the SMOKE
-configs of all seven architectures, and ``make_train_step`` over 3 steps
+configs of all ten architectures (HuBERT on frame embeddings and
+labels), and ``make_train_step`` over 3 steps
 with 1 and 2 microbatches; the four remat modes against each other;
 kernels in train mode refused.
 
@@ -45,7 +46,8 @@ from repro_torch.models.steps import make_train_step
 from repro_torch.optim import adamw
 
 ARCHS = ("smollm-360m", "recurrentgemma-2b", "mixtral-8x7b",
-         "llama4-scout-17b-a16e", "granite-8b", "qwen1.5-0.5b", "qwen1.5-4b")
+         "llama4-scout-17b-a16e", "granite-8b", "qwen1.5-0.5b", "qwen1.5-4b",
+         "xlstm-350m", "hubert-xlarge", "qwen2-vl-72b")
 # The 3-step state comparison's 1e-2 x lr bound on params is an empirical
 # one (module doc): AdamW moves an element by its first moment over the
 # root of its second, so an element whose gradient is ~1e-4 of its
@@ -75,6 +77,23 @@ def jax_cfg(cfg):
 def tokens(cfg, shape, seed):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def batch_of(cfg, shape, seed):
+    """A numpy training batch: token ids, or for a frame model (HuBERT,
+    no token embedding) frame embeddings and their labels."""
+    if cfg.frontend != "audio_frames":
+        return {"tokens": tokens(cfg, shape, seed)}
+    g = np.random.default_rng(seed)
+    return {"embeds": g.standard_normal((*shape, cfg.d_frontend)).astype(
+        np.float32), "labels": tokens(cfg, shape, seed + 1)}
+
+
+def grads_of(model):
+    """{name: grad}; zeros for a leaf the loss does not reach (a token
+    model's frontend_proj), as the reference's grad tree has them."""
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters()}
 
 
 def model_of(cfg, tree):
@@ -198,9 +217,9 @@ def grads_case(request):
     """(cfg, tree, batch, the JAX package's loss and grads)."""
     cfg = cfg_of(request.param)
     tree = init_numpy(cfg, 0)
-    batch = {"tokens": tokens(cfg, (2, 41), 7)}
+    batch = batch_of(cfg, (2, 41), 7)
     loss, grads = jax.value_and_grad(lambda p: JM.loss_fn(
-        p, jax_cfg(cfg), {"tokens": jnp.asarray(batch["tokens"])}))(
+        p, jax_cfg(cfg), jax.tree.map(jnp.asarray, batch)))(
         jax.tree.map(jnp.asarray, tree))
     return cfg, tree, batch, float(loss), grads
 
@@ -208,21 +227,26 @@ def grads_case(request):
 def test_loss_fn_and_every_gradient(grads_case):
     cfg, tree, batch, jloss, jgrads = grads_case
     model = model_of(cfg, tree)
-    loss = M.loss_fn(model, cfg, {"tokens": torch.from_numpy(
-        batch["tokens"])})
+    loss = M.loss_fn(model, cfg, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()})
     np.testing.assert_allclose(float(loss.detach()), jloss, rtol=1e-6)
     loss.backward()
-    assert_tensors_close({n: p.grad for n, p in model.named_parameters()},
-                         jgrads, cfg)
+    assert_tensors_close(grads_of(model), jgrads, cfg)
 
 
 def test_loss_fn_with_pipeline_labels(grads_case):
     """Pipeline batches carry shifted labels: the same loss as shifting
-    the token stream here."""
+    the token stream here. A frame model's batch carries its labels: its
+    loss is the cross entropy of ``encode``'s logits."""
     cfg, tree, batch, jloss, _ = grads_case
-    t = torch.from_numpy(batch["tokens"])
-    got = M.loss_fn(model_of(cfg, tree), cfg,
-                    {"tokens": t[:, :-1], "labels": t[:, 1:]})
+    model = model_of(cfg, tree)
+    if "tokens" in batch:
+        t = torch.from_numpy(batch["tokens"])
+        got = M.loss_fn(model, cfg, {"tokens": t[:, :-1],
+                                     "labels": t[:, 1:]})
+    else:
+        logits = M.encode(model, cfg, torch.from_numpy(batch["embeds"]))
+        got = L.cross_entropy(logits, torch.from_numpy(batch["labels"]))
     np.testing.assert_allclose(float(got.detach()), jloss, rtol=1e-6)
 
 
@@ -248,8 +272,8 @@ def test_train_mode_refuses_the_kernels(arch):
     assert cfg.use_kernels
     model = model_of(cfg, init_numpy(cfg, 0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.loss_fn(model, cfg, {"tokens": torch.zeros((1, 9),
-                                                     dtype=torch.int32)})
+        M.loss_fn(model, cfg, {k: torch.from_numpy(v) for k, v in
+                               batch_of(cfg, (1, 9), 0).items()})
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +302,8 @@ def remat_runs(request):
     n_layers = 6 if request.param == "recurrentgemma-2b" else 4
     base = cfg_of(request.param, n_layers=n_layers)
     tree = init_numpy(base, 3)
-    batch = {"tokens": torch.from_numpy(tokens(base, (2, 33), 4))}
+    batch = {k: torch.from_numpy(v) for k, v in
+             batch_of(base, (2, 33), 4).items()}
     out = {}
     for remat in REMATS:
         cfg = base.replace(remat=remat)
@@ -286,8 +311,7 @@ def remat_runs(request):
         loss = M.loss_fn(model, cfg, batch)
         with _CountMM() as count:
             loss.backward()
-        out[remat] = (loss.detach(), {n: p.grad for n, p in
-                                      model.named_parameters()}, count.mm)
+        out[remat] = (loss.detach(), grads_of(model), count.mm)
     return out
 
 
@@ -322,7 +346,7 @@ def train_runs(request):
     cfg = cfg_of(arch, remat="dots")
     tree = init_numpy(cfg, 5)
     kw = dict(lr=LR, warmup_steps=2, total_steps=6)
-    batches = [{"tokens": tokens(cfg, (4, 25), 10 + i)} for i in range(3)]
+    batches = [batch_of(cfg, (4, 25), 10 + i) for i in range(3)]
     step = jax.jit(jax_train_step(jax_cfg(cfg), jadamw.AdamWConfig(**kw),
                                   microbatches=mb))
     params = jax.tree.map(jnp.asarray, tree)
