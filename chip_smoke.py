@@ -96,10 +96,28 @@ Phases, each fatal on any mismatch:
      BENCH_serve.json's "graph" and the speedup at least 1.5; one graph
      instance through a Fleet of the compiled DSE frontier's two ends,
      its stages on one device;
-     for phases 4-8 pe_execute's calls are counted by (W, L) per path,
-     each path's wall time, rounds, µs per round and the device's busy
-     share (torch.profiler over a representative piece) reported, and
-     at every (W, L) the five paths launched, pe_execute held bit for
+  8b. mesh and legacy (mesh_legacy_path): the launch axis split 8 ways
+     over LaunchMesh([card] * 8) — (a) run_kernel_cohort_async of the 8
+     seeded fir images at Table III size on 8 CUs, then of 12 (the golden
+     image, its variant, seeds 0-9; 16 rows with the padding), each
+     against the golden file; (b) run_kernel_batch of copy, vec_mul,
+     div_int and fir, golden and variant, and fir seeds 0-1 (six HALT
+     fillers), against the golden file; (c) a patch chain across shards
+     (shard 0's output into shard 7's launch, a BlockPatch, an
+     XorBlockPatch) against the same chain unsharded on the card; (d) the
+     serving traffic through Scheduler(max_batch=4, mesh=) against the
+     unsharded Scheduler, launches/s of both; (e) Fleet([fast, wide],
+     mesh=) sliced 4 + 4 on a mixed trace, against direct runs, its
+     report's invariants; (f) Scheduler(mesh=make_launch_mesh()), one
+     entry a card (the unsharded path on one card); then (g)
+     run_kernel(legacy=True), fuse 1, on 8-CU copy, div_int, vec_mul,
+     fir and reduction and 1-CU fir, each against the golden file, its
+     launches equal to its steps;
+     for phases 4-8b pe_execute's calls are counted by (W, L) per path
+     (seven: simulator, serve, dse, fleet, compiler, mesh, legacy), each
+     path's wall time, rounds and µs per round reported, for 4-8 also the
+     device's busy share (torch.profiler over a representative piece),
+     and at every (W, L) the paths launched, pe_execute held bit for
      bit against select_alu on random inputs (with each opcode set the
      paths gave it there) and then timed;
   9. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
@@ -213,7 +231,8 @@ from repro_torch.convert import init_model, params_from_reference  # noqa
 from repro_torch.ggpu import isa, programs  # noqa: E402
 from repro_torch import dse  # noqa: E402
 from repro_torch.ggpu.engine import (BlockPatch, GGPUConfig,  # noqa: E402
-                                     ScalarConfig, XorBlockPatch, run_kernel,
+                                     ScalarConfig, XorBlockPatch,
+                                     cohort_rows, run_kernel,
                                      run_kernel_async, run_kernel_batch,
                                      run_kernel_batch_async,
                                      run_kernel_cohort,
@@ -227,6 +246,7 @@ from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
                                        to_device)
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import LaunchMesh, make_launch_mesh  # noqa
 from repro_torch.models import attention as MA  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -305,7 +325,10 @@ VARIANTS = {r.bench: r for r in VARIANT_RUNS}
 # script within its limit (REDUCED)
 DRAIN_BENCHES = tuple(n for n in programs.LEGACY_ORDER
                       if n not in ("xcorr", "parallel_sel"))
-GOLDEN_RUNS = ALL_RUNS + VARIANT_RUNS    # every launch golden_runs.json has
+# the mesh path's cohort of twelve (mesh_cohort) adds fir seeds 8 and 9
+MESH_RUNS = tuple(Run(f"8cu/shared/fir/seed{k}", "fir", "gpu", {"n_cus": 8},
+                      seed=k) for k in (8, 9))
+GOLDEN_RUNS = ALL_RUNS + VARIANT_RUNS + MESH_RUNS   # every launch the file has
 # The DSE sweep: the CI smoke grid (benchmarks/baselines/BENCH_dse.json)
 # and the nightly grid's full axes, both on xcorr at (16, 128).
 GOLDEN_DSE = ROOT / "src" / "repro_torch" / "dse" / "golden_dse.json"
@@ -2645,6 +2668,221 @@ def compiler_profile(dev) -> dict:
                           seed=next(seeds), device=dev))
 
 
+# -- phase 8b: the mesh and legacy launch modes on the card -----------------
+
+# the launch axis split 8 ways over one card: LaunchMesh([card] * 8) runs
+# eight machines, one a shard, one after the other on the card's stream
+MESH_ENTRIES = 8
+MESH_BATCH = ("copy", "vec_mul", "div_int", "fir")
+# the fleet leg's two configs (tests/test_fleet_sharded.py's) and trace
+MESH_FLEET = (("fast", {"n_cus": 1, "freq_mhz": 800.0}),
+              ("wide", {"n_cus": 8, "freq_mhz": 500.0}))
+MESH_FLEET_TRACE = (("copy", (16, 1024)), ("reduction", (64, 256)))
+MESH_SERVE_MAX_BATCH = 4
+# the legacy stepper (fuse 1, one host check a round) at Table III size
+LEGACY_RUNS = tuple(MAIN_RUNS_BY_KEY[f"8cu/shared/{n}"] for n in (
+    "copy", "div_int", "vec_mul", "fir", "reduction")) + (
+        MAIN_RUNS_BY_KEY["1cu/shared/fir"],)
+
+
+def mesh_cohort(benches, golden, mesh) -> dict:
+    """(a) run_kernel_cohort_async over the mesh: the eight seeded fir
+    images (one a shard), then twelve (the golden image, its variant and
+    seeds 0-9: cohort_rows(12, 8) = 16 rows, four of them padding), each
+    launch against the golden file and the numpy reference."""
+    cfg8, rows = GGPUConfig(n_cus=8), []
+    fir = (MAIN_RUNS_BY_KEY["8cu/shared/fir"], VARIANTS["fir"])
+    for runs in (COHORT_RUNS, fir + COHORT_RUNS + MESH_RUNS):
+        lanes = [launch(r, benches) for r in runs]
+        h = run_kernel_cohort_async(lanes[0][0], [x[1] for x in lanes],
+                                    lanes[0][2], cfg8, mesh=mesh)
+        padded = cohort_rows(len(runs), mesh.size)
+        check(len(h) == len(runs) and len(h.staged) == mesh.size
+              and h._b_local * mesh.size == padded,
+              f"mesh cohort of {len(runs)}: {len(h)} launches, "
+              f"{h._b_local} rows a shard")
+        for run, lane, (mem, info) in zip(runs, lanes, h.results()):
+            _check_run(run, mem, info, lane[4], lane[3], golden)
+        rows.append({"launches": len(runs), "rows": padded})
+    return {"cohorts": rows}
+
+
+def mesh_batch(benches, golden, mesh) -> dict:
+    """(b) run_kernel_batch over the mesh: copy, vec_mul, div_int and fir,
+    golden and variant, and fir seeds 0 and 1: ten launches padded with
+    six 1-item HALT fillers to 16 rows; each against the golden file."""
+    runs = ([MAIN_RUNS_BY_KEY[f"8cu/shared/{n}"] for n in MESH_BATCH]
+            + [VARIANTS[n] for n in MESH_BATCH] + list(COHORT_RUNS[:2]))
+    lanes = [launch(r, benches) for r in runs]
+    results = run_kernel_batch([x[0] for x in lanes], [x[1] for x in lanes],
+                               [x[2] for x in lanes], GGPUConfig(n_cus=8),
+                               mesh=mesh)
+    check(len(results) == len(runs), f"mesh batch: {len(results)} results")
+    for run, lane, (mem, info) in zip(runs, lanes, results):
+        _check_run(run, mem, info, lane[4], lane[3], golden)
+    return {"launches": len(runs), "fillers": -len(runs) % mesh.size}
+
+
+def mesh_patch_chain(benches, mesh, dev) -> dict:
+    """(c) eight 8-CU copy producers, one a shard, feed consumers over the
+    same mesh: shard 0's output into the launch on shard 7 (a per-launch
+    patch), every row into its consumer (a BlockPatch of
+    device_mem_block), seeded bits XORed in (an XorBlockPatch); each
+    equal to the same chain unsharded on the card, and the producers'
+    memory unchanged."""
+    b, cfg8 = benches["copy"], GGPUConfig(n_cus=8)
+    n, M, k = b.gpu_n, b.gpu_mem.shape[0], mesh.size
+    prods = [launch(Run("copy", "copy", "gpu", {}, seed=s), benches)[1]
+             for s in range(k)]
+    cons = [np.zeros(M, np.int32) for _ in prods]
+    flips = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 2**31 - 1, (k, n)).astype(np.int32)).to(dev)
+    chains = {}
+    for what, where in (("sharded", {"mesh": mesh}), ("unsharded",
+                                                      {"device": dev})):
+        hp = run_kernel_cohort_async(b.gpu_prog, prods, b.gpu_items, cfg8,
+                                     **where)
+        before = hp.device_mem_block(0, M).clone()
+        per = [None] * (k - 1) + [[(0, n, hp.device_mem(0, (n, 2 * n)))]]
+        outs = []
+        for patches in (per, BlockPatch(0, n, hp.device_mem_block(n, 2 * n)),
+                        XorBlockPatch(0, n, flips)):
+            h = run_kernel_cohort_async(b.gpu_prog, cons, b.gpu_items, cfg8,
+                                        patches=patches, **where)
+            outs.append([summary(*r) for r in h.results()])
+        check(torch.equal(hp.device_mem_block(0, M), before),
+              f"mesh patch chain ({what}): a consumer wrote its producer")
+        chains[what] = outs
+    check(chains["sharded"] == chains["unsharded"],
+          "mesh patch chain: sharded != unsharded on the card")
+    return {"launches": 4 * k, "patch_forms": 3}
+
+
+def _serve_pass(sched, b, traffic) -> tuple:
+    """One pass of the traffic, burst by burst: (results, launches/s)."""
+    served, t0 = [], time.perf_counter()
+    for burst in traffic:
+        for mem in burst:
+            sched.submit(b.gpu_prog, mem, b.gpu_items)
+        served += sched.drain()
+    return served, len(served) / (time.perf_counter() - t0)
+
+
+def mesh_serving(mesh, dev) -> dict:
+    """(d) the serving phase's traffic (vec_mul(32, 512) on 2 CUs, 8
+    bursts of 16) through Scheduler(max_batch=4, mesh=8 entries) against
+    the unsharded Scheduler on the card, and (f) through
+    Scheduler(mesh=make_launch_mesh()), whose extent is the card count
+    (1: the unsharded path); launches/s of each (a reading: on one card
+    the shards take turns)."""
+    b = programs.build(SERVE_BENCH, *SERVE_SIZES)
+    traffic = serve_traffic(b)
+    cfg = GGPUConfig(n_cus=SERVE_CUS)
+    machine = make_launch_mesh()
+    check(machine.size == torch.cuda.device_count(),
+          f"make_launch_mesh: extent {machine.size}")
+    scheds = {"unsharded": Scheduler(cfg, max_batch=MESH_SERVE_MAX_BATCH,
+                                     device=dev),
+              "sharded": Scheduler(cfg, max_batch=MESH_SERVE_MAX_BATCH,
+                                   mesh=mesh),
+              "make_launch_mesh": Scheduler(
+                  cfg, max_batch=MESH_SERVE_MAX_BATCH, mesh=machine)}
+    check(scheds["sharded"].plan_batch == MESH_SERVE_MAX_BATCH * mesh.size
+          and scheds["make_launch_mesh"].executor.shards == machine.size,
+          "mesh serving: plan widths")
+    out, want = {}, None
+    for name, sched in scheds.items():
+        served, rate = _serve_pass(sched, b, traffic)
+        got = [summary(r.mem, r.info) for r in served]
+        want = got if want is None else want
+        check(len(served) == SERVE_BURSTS * SERVE_BURST and got == want,
+              f"mesh serving ({name}) != the unsharded Scheduler")
+        out[name] = {"launches_per_s": rate, "shards":
+                     sched.executor.shards,
+                     **sched.executor.stats.report()}
+    out["sharded_over_unsharded"] = (out["sharded"]["launches_per_s"]
+                                     / out["unsharded"]["launches_per_s"])
+    return out
+
+
+def mesh_fleet(mesh, dev) -> dict:
+    """(e) Fleet([fast, wide], mesh=8 entries), sliced 4 + 4, on a mixed
+    trace (copy(16, 1024) and reduction(64, 256), three seeded images
+    each): every result equal to a direct run on the card and to the
+    numpy reference; utilisation, queue depth and shards hold."""
+    cfgs = {name: GGPUConfig(**c) for name, c in MESH_FLEET}
+    fleet = Fleet(list(cfgs.items()), max_batch=4, mesh=mesh)
+    check([d.mesh.size for d in fleet.devices] == [4, 4],
+          "mesh fleet: slices != 4 + 4")
+    rng = np.random.default_rng(1)
+    trace = {}
+    for _ in range(3):
+        for name, sizes in MESH_FLEET_TRACE:
+            b = programs.build(name, *sizes)
+            mem = _fresh_mems(b, 1, rng)[0]
+            trace[fleet.submit(b.gpu_prog, mem, b.gpu_items)] = (b, mem)
+    depth = fleet.report()["queue_depth"]
+    out = fleet.drain()
+    rep = fleet.report()
+    util = rep["utilization"]
+    check(sum(depth.values()) == len(trace) and len(out) == len(trace)
+          and not fleet.quarantined
+          and all(v == 0 for v in rep["queue_depth"].values())
+          and max(util.values()) == 1.0
+          and all(0.0 <= v <= 1.0 for v in util.values())
+          and sum(rep["placement"].values()) == len(trace)
+          and rep["shards"] == {"fast": 4, "wide": 4},
+          f"mesh fleet report: {rep}")
+    for r in out:
+        b, mem = trace[r.info["ticket"]]
+        want = run_kernel(b.gpu_prog, mem, b.gpu_items,
+                          cfgs[r.info["device"]], device=dev)
+        check(summary(r.mem, r.info) == summary(*want)
+              and np.array_equal(r.mem[b.gpu_out], b.ref(mem, b.gpu_n)),
+              f"mesh fleet ticket {r.info['ticket']} != its direct run")
+    return {"placement": rep["placement"], "shards": rep["shards"],
+            "utilization": util, "makespan_us": rep["makespan_us"]}
+
+
+def mesh_path(benches, golden, dev) -> dict:
+    """mesh= over LaunchMesh([card] * 8) (module doc, phase 8b, legs
+    a-f).
+    Returns each leg's rounds and wall."""
+    mesh = LaunchMesh([dev] * MESH_ENTRIES)
+    legs = {}
+    for name, fn, args in (("cohort", mesh_cohort, (benches, golden, mesh)),
+                           ("batch", mesh_batch, (benches, golden, mesh)),
+                           ("patch_chain", mesh_patch_chain,
+                            (benches, mesh, dev)),
+                           ("serving", mesh_serving, (mesh, dev)),
+                           ("fleet", mesh_fleet, (mesh, dev))):
+        out, rounds, wall = _timed(fn, *args)
+        legs[name] = {**_rounds_line(wall, rounds), **out}
+    check(legs["cohort"]["rounds"] > 0, "the mesh cohort launched nothing")
+    emit({"mesh_path": legs})
+    return legs
+
+
+def legacy_path(benches, golden, dev) -> dict:
+    """(g) run_kernel(legacy=True) at Table III size: 8-CU shared copy,
+    div_int, vec_mul, fir and reduction and 1-CU shared fir, each against
+    the golden file (memory, cycles, stats, steps); one round a host
+    check, so its pe_execute launches equal its steps."""
+    runs = {}
+    for run in LEGACY_RUNS:
+        prog, mem0, n, out, expected = launch(run, benches)
+        cfg = make_config(run, GGPUConfig, ScalarConfig)
+        (mem, info), rounds, wall = _timed(
+            lambda: run_kernel(prog, mem0, n, cfg, legacy=True, device=dev))
+        _check_run(run, mem, info, expected, out, golden)
+        check(rounds == info["steps"],
+              f"legacy {run.key}: {rounds} rounds for {info['steps']} steps")
+        runs[run.key] = {**_rounds_line(wall, rounds),
+                         "steps": info["steps"]}
+    emit({"legacy_path": runs})
+    return runs
+
+
 # -- phase 11: LM training on the card ---------------------------------------
 
 GOLDEN_TRAIN = ROOT / "src" / "repro_torch" / "train" / "golden_train.json"
@@ -4230,12 +4468,29 @@ def main() -> int:
             f"{W}x{L}": n for (W, L), n in compiler_shapes.items()}}})
     emit({"compiler_profile": compiler_profile(dev)})
     laps.append(("compiler", time.perf_counter()))
+    # phase 8b, mesh_legacy_path: the mesh legs and the legacy runs, each
+    # counted on its own
+    _, mesh_launches, mesh_shapes, mesh_wall = counted_path(
+        mesh_path, benches, golden, dev)
+    _, legacy_launches, legacy_shapes, legacy_wall = counted_path(
+        legacy_path, benches, golden, dev)
+    emit({"mesh_legacy_path_counts": {
+        name: {**_rounds_line(wall, n), "pe_execute_launches": n,
+               "pe_execute_launches_by_shape": {
+                   f"{W}x{L}": k for (W, L), k in shapes.items()}}
+        for name, n, shapes, wall in (
+            ("mesh", mesh_launches, mesh_shapes, mesh_wall),
+            ("legacy", legacy_launches, legacy_shapes, legacy_wall))}})
+    laps.append(("mesh_legacy", time.perf_counter()))
     path_launches = {"simulator": launches, "serve": serve_launches,
                      "dse": dse_launches, "fleet": fleet_launches,
-                     "compiler": compiler_launches}
+                     "compiler": compiler_launches, "mesh": mesh_launches,
+                     "legacy": legacy_launches}
     pe = pe_shapes_phase(dev, {"simulator": by_shape, "serve": serve_shapes,
                                "dse": dse_shapes, "fleet": fleet_shapes,
-                               "compiler": compiler_shapes})
+                               "compiler": compiler_shapes,
+                               "mesh": mesh_shapes,
+                               "legacy": legacy_shapes})
     laps.append(("pe_execute_shapes", time.perf_counter()))
 
     lm_golden(dev)
@@ -4308,6 +4563,8 @@ def main() -> int:
     check(dse_launches > 0, "the DSE path launched no pe_execute")
     check(fleet_launches > 0, "the fleet path launched no pe_execute")
     check(compiler_launches > 0, "the compiler path launched no pe_execute")
+    check(mesh_launches > 0, "the mesh path launched no pe_execute")
+    check(legacy_launches > 0, "the legacy path launched no pe_execute")
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(moe_path["flash_launches"] > 0,
           "the MoE path launched no flash_attention")

@@ -12,7 +12,8 @@ cycle-approximate simulator (counterpart of ``repro.ggpu.engine``).
     cycle model
   * ``stepper``   — composition root: the round loop, the single/cohort/
     batch entry points and their ``_async`` twins (``LaunchHandle``,
-    patches)
+    patches), ``mesh=`` sharding of the launch axis (``launch_shards``,
+    ``cohort_rows``) and the ``legacy=True`` reference stepper
 """
 from repro_torch.ggpu.engine.alu import branch_taken, exec_alu, select_alu
 from repro_torch.ggpu.engine.config import GGPUConfig, ScalarConfig

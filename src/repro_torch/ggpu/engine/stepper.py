@@ -50,11 +50,36 @@ in place, so a handle's final memory *is* the staged buffer
 (``LaunchHandle.staged``).
 
 One write sink (the last memory word) serves every element; it is never
-observable. Not ported yet: ``legacy=True`` (ROADMAP.md, queue 1, item 4)
-and ``mesh=`` sharding (item 9).
+observable.
+
+**Sharded execution.** The cohort and batch entry points accept a
+``mesh=`` (``repro_torch.launch.mesh.LaunchMesh``): the launch axis is
+split into one slice per mesh entry, each slice a folded machine of its
+own on that entry's device, with its own write sink. A cohort pads ``B``
+up to ``cohort_rows(B, shards)`` with copies of its first image, a batch
+pads with 1-item HALT fillers up to a multiple of the shard count; every
+resolution path drops the padding before it can be observed. There are
+no collectives: one host loop issues every still-running shard's
+``fuse`` rounds before it reads any shard's termination flag (one read
+per device), and stops stepping a shard once its own launches halt.
+Steps and cycles count per element, so the bits are the unsharded run's.
+A mesh of extent 1, or ``B == 1``, takes the unsharded path on the mesh's
+first device. Each shard runs on its device's current stream, so a mesh
+that repeats one device runs its shards one after the other there.
+
+**The legacy stepper.** ``run_kernel(legacy=True)`` is the seed-faithful
+configuration of the reference's pre-knob engine: one round per host
+check (fuse 1) over the unpruned datapath (every opcode). Its stages are
+the fused round's, whose results equal the reference's legacy stages
+(``tests/test_torch_legacy.py``), so it equals the fused engine in every
+observable. Like the reference's, it refuses what the seed model did not
+have: a memsys other than ``shared``, ``pipeline_depth > 0``, and ``W``
+that does not divide into CU columns (the reference's legacy ranking
+predates ragged-W rounding).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,8 +89,10 @@ from repro_torch import _device
 from repro_torch.ggpu import isa
 from repro_torch.ggpu.engine import alu, frontend, scheduler
 from repro_torch.ggpu.engine.config import GGPUConfig
-from repro_torch.ggpu.engine.memsys import get_memsys, load_store
+from repro_torch.ggpu.engine.memsys import (SharedCache, get_memsys,
+                                            load_store)
 from repro_torch.kernels import pe_simd
+from repro_torch.launch.mesh import LaunchMesh
 
 
 class MachineState(NamedTuple):
@@ -88,12 +115,6 @@ class KernelLaunchError(RuntimeError):
         self.index = index
 
 
-LEGACY_TODO = ("legacy=True (the seed-faithful reference stepper) is not "
-               "ported yet: ROADMAP.md, queue 1, item 4")
-MESH_TODO = ("mesh= sharding of the launch axis is not ported yet: "
-             "ROADMAP.md, queue 1, item 9")
-
-
 def _n_wavefronts(n_items: int, cfg: GGPUConfig) -> int:
     L = cfg.wavefront
     W = (n_items + L - 1) // L
@@ -109,17 +130,17 @@ def _static_ops(prog: np.ndarray):
     return tuple(sorted({int(o) for o in prog[:, 0]}))
 
 
-def run_machine(cfg: GGPUConfig, progs: torch.Tensor, mem_sink: torch.Tensor,
-                n_items: Sequence[int], msizes: Sequence[int], W: int,
-                ops) -> MachineState:
-    """Run ``B = len(n_items)`` folded machines to completion.
+def _machine(cfg: GGPUConfig, progs: torch.Tensor, mem_sink: torch.Tensor,
+             n_items: Sequence[int], msizes: Sequence[int], W: int, ops):
+    """One folded machine of ``B = len(n_items)`` elements: returns
+    ``(initial state, round_step, running)``, where ``running(state)`` is
+    a 0-dim device bool (no host sync).
 
     ``progs`` (Bp, P, 5) int32 with Bp == 1 (one program for every
     element) or Bp == B; ``mem_sink`` the (B*M + 1,) concatenated memory
     envelopes plus the write sink, updated in place; ``n_items`` and
     ``msizes`` each element's item count and own memory size (<= M);
-    ``ops`` the static opcode set (None = unpruned). Returns the final
-    state; the host synchronises once per ``cfg.fuse`` rounds."""
+    ``ops`` the static opcode set (None = unpruned)."""
     dev = mem_sink.device
     B = len(n_items)
     Bp, P, _ = progs.shape
@@ -213,16 +234,40 @@ def run_machine(cfg: GGPUConfig, progs: torch.Tensor, mem_sink: torch.Tensor,
         return MachineState(pc, regs, done, mem, tags, s.cycles + round_t,
                             stats, s.step + runvec.to(torch.int32))
 
-    def still_running(s: MachineState) -> bool:
-        running = ~s.done.view(B, -1).all(dim=1) & (s.step < cfg.max_steps)
-        return bool(running.any())            # the one host sync per group
+    def running(s: MachineState) -> torch.Tensor:
+        return (~s.done.view(B, -1).all(dim=1)
+                & (s.step < cfg.max_steps)).any()
 
+    return st, round_step, running
+
+
+def run_machines(cfg: GGPUConfig, jobs: Sequence[tuple]
+                 ) -> List[MachineState]:
+    """Run independent folded machines (one per shard) to completion from
+    one host loop. ``jobs`` holds ``_machine``'s arguments after ``cfg``
+    for each. Every still-running machine's ``fuse`` rounds are
+    issued before any termination flag is read, the flags are read once
+    per device, and a machine whose own launches halted is not stepped
+    again. Returns each machine's final state."""
+    machines = [_machine(cfg, *job) for job in jobs]
+    states = [m[0] for m in machines]
     fuse = max(1, cfg.fuse)
-    while True:
-        for _ in range(fuse):
-            st = round_step(st)
-        if not still_running(st):
-            return st
+    live = list(range(len(machines)))
+    while live:
+        for k in live:
+            step = machines[k][1]
+            for _ in range(fuse):
+                states[k] = step(states[k])
+        flags: dict = {}                       # device -> [(k, flag)]
+        for k in live:
+            flag = machines[k][2](states[k])
+            flags.setdefault(flag.device, []).append((k, flag))
+        still = set()
+        for pairs in flags.values():         # the host syncs: one a device
+            read = torch.stack([f for _, f in pairs]).tolist()
+            still.update(k for (k, _), r in zip(pairs, read) if r)
+        live = [k for k in live if k in still]
+    return states
 
 
 def _info(cycles: int, stats, steps: int, cfg: GGPUConfig) -> dict:
@@ -239,21 +284,33 @@ def _info(cycles: int, stats, steps: int, cfg: GGPUConfig) -> dict:
 
 
 def launch_shards(mesh) -> int:
-    """How many ways the launch axis splits over ``mesh``: 1 without one
-    (the port has no sharding yet; a mesh raises)."""
+    """How many ways the launch axis splits over ``mesh`` (a
+    ``LaunchMesh``): its extent, 1 for ``None``."""
     if mesh is None:
         return 1
-    raise NotImplementedError(MESH_TODO)
+    if not isinstance(mesh, LaunchMesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.LaunchMesh,"
+                        f" got {type(mesh).__name__}")
+    return mesh.size
 
 
 def cohort_rows(B: int, shards: int = 1) -> int:
-    """The reference's padded cohort size for a ``B``-launch cohort over
-    ``shards`` devices (the per-shard slice rounded up to a power of two).
-    The port runs exactly ``B`` machines; executors key their envelope
-    cache on this bucket so that their hit/miss counters equal the
-    reference's."""
+    """Padded cohort size for a ``B``-launch cohort over ``shards``
+    devices: the per-shard slice rounded up to a power of two. A sharded
+    cohort stages this many rows (copies of its first image pad it);
+    the unsharded port runs exactly ``B`` machines, since eager PyTorch
+    compiles no shape. Executors key their envelope cache on this bucket,
+    as the reference does, so their hit/miss counters equal its."""
     b_local = -(-B // shards)
     return shards * (1 << max(0, b_local - 1).bit_length())
+
+
+def _placement(mesh, device) -> torch.device:
+    """The device of an unsharded launch: ``device`` when given, else the
+    mesh's first entry, else the card."""
+    if device is None and mesh is not None:
+        return mesh.devices[0]
+    return _device.resolve(device)
 
 
 Region = Optional[Tuple[int, int]]
@@ -372,49 +429,70 @@ def _check_regions(regions: Optional[Sequence[Region]], B: int,
     return regions
 
 
+def _patch_shard(patches, lo: int, hi: int):
+    """The patches of launches ``[lo, hi)`` (one shard's real launches),
+    re-indexed from 0; ``None`` when none of them is patched."""
+    if hi <= lo:
+        return None
+    if isinstance(patches, (BlockPatch, XorBlockPatch)):
+        return type(patches)(patches.lo, patches.hi, patches.block[lo:hi])
+    return list(patches)[lo:hi]
+
+
 _WHAT = {"single": lambda i: "kernel",
          "cohort": lambda i: f"cohort kernel {i}",
+         "shard-cohort": lambda i: f"cohort kernel {i}",
          "batch": lambda i: f"batched kernel {i}"}
 
 
 class LaunchHandle:
-    """One dispatched (possibly folded) kernel launch.
+    """One dispatched (possibly folded, possibly sharded) kernel launch.
 
-    The dispatch has already run the machine to completion (module doc);
-    ``ready()`` queries the CUDA event recorded after it (True on the
-    CPU). ``wait()`` fetches only the small per-launch arrays (one
-    transfer) and raises ``KernelLaunchError`` naming the first launch that
-    hit ``max_steps``, again on every call. The final memory stays on the
-    device until asked for: ``mem(i)`` downloads launch ``i``'s declared
-    ``out_region`` slice (``(0, 0)``: nothing), the full image otherwise;
-    when every launch declares the same region, one slice of the whole
-    chunk is downloaded. ``results()`` returns the sync entry point's
-    ``(mem, info)`` pairs.
+    The dispatch has already run the machines to completion (module doc);
+    ``ready()`` queries the CUDA event recorded after it on each device
+    (True on the CPU). ``wait()`` fetches only the small per-launch arrays
+    (one transfer per shard) and raises ``KernelLaunchError`` naming the
+    first launch that hit ``max_steps``, again on every call. The final
+    memory stays on the device until asked for: ``mem(i)`` downloads
+    launch ``i``'s declared ``out_region`` slice (``(0, 0)``: nothing), the
+    full image otherwise; when every launch declares the same region, one
+    slice of the whole chunk is downloaded. ``results()`` returns the sync
+    entry point's ``(mem, info)`` pairs.
 
-    Memory layout: ``B`` rows of ``msize`` words plus the write sink, one
-    flat tensor for every kind; a batch keeps each launch's own size in
-    ``n_keep``. ``staged`` is the buffer the dispatch staged (and
-    patched): the machine updated it in place, so it holds the final
-    memory — the port's analogue of the reference's donated buffer.
+    Memory layout: one flat tensor per shard, ``b_local`` rows of
+    ``msize`` words plus that shard's write sink; launch ``i`` is row
+    ``i % b_local`` of shard ``i // b_local``. An unsharded dispatch is
+    one shard of ``B`` rows. A batch keeps each launch's own size in
+    ``n_keep``. Rows past ``B`` (a sharded dispatch's padding) are never
+    observable: not in ``len``, ``infos``, ``mem``, the device views or
+    ``KernelLaunchError.index``. ``staged`` is the buffer the dispatch
+    staged and patched (a tuple of one per shard when sharded): the
+    machines updated it in place, so it holds the final memory — the
+    port's analogue of the reference's donated buffer. Kind
+    ``"shard-cohort"`` is a sharded cohort.
     """
 
-    def __init__(self, final: MachineState, cfg: GGPUConfig, kind: str,
-                 B: int, msize: int, n_keep: Optional[Sequence[int]],
+    def __init__(self, finals: Sequence[MachineState], cfg: GGPUConfig,
+                 kind: str, B: int, msize: int,
+                 n_keep: Optional[Sequence[int]],
                  regions: Optional[Sequence[Region]],
-                 batch_size: Optional[int], staged: torch.Tensor):
-        self._final = final
+                 batch_size: Optional[int], staged: Sequence[torch.Tensor]):
+        self._finals = list(finals)
         self._cfg = cfg
         self._kind = kind
         self._B = B
         self._msize = msize
+        self._b_local = (self._finals[0].mem.shape[0] - 1) // msize
         self._n_keep = list(n_keep) if n_keep is not None else None
         self._regions = regions            # checked by _check_regions
         self._batch_size = batch_size
-        self.staged = staged
-        self._event = None
-        if staged.device.type == "cuda":
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(staged.device))
+        self.staged = staged[0] if len(staged) == 1 else tuple(staged)
+        self._events = []
+        for dev in dict.fromkeys(buf.device for buf in staged):
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                self._events.append(event)
         self._small = None                     # (cycles, stats, steps)
         self._mem_full = None
         self._mems: dict = {}
@@ -423,18 +501,21 @@ class LaunchHandle:
         return self._B
 
     def ready(self) -> bool:
-        """Non-blocking: has the device finished this dispatch?"""
-        return self._event is None or self._event.query()
+        """Non-blocking: has every device finished this dispatch?"""
+        return all(e.query() for e in self._events)
 
     def wait(self) -> "LaunchHandle":
         """Fetch the small per-launch arrays; raise ``KernelLaunchError``
-        naming the first failing launch."""
+        naming the first failing launch (never a padding row)."""
         if self._small is not None:
             return self
-        f = self._final
-        done = f.done.reshape(self._B, -1).all(dim=1, keepdim=True)
-        small = torch.cat([done.to(torch.int32), f.cycles[:, None], f.stats,
-                           f.step[:, None]], dim=1).cpu().numpy()
+        parts = []
+        for f in self._finals:
+            done = f.done.reshape(self._b_local, -1).all(dim=1, keepdim=True)
+            parts.append(torch.cat([done.to(torch.int32), f.cycles[:, None],
+                                    f.stats, f.step[:, None]],
+                                   dim=1).cpu().numpy())
+        small = np.concatenate(parts)[:self._B]
         for i in range(self._B):
             if not small[i, 0]:
                 raise KernelLaunchError(
@@ -473,10 +554,15 @@ class LaunchHandle:
                 self._mems[i] = self.device_mem(i, region).cpu().numpy()
         return self._mems[i]
 
+    def _rows(self, f: MachineState) -> torch.Tensor:
+        """One shard's final memory as a ``(b_local, msize)`` view."""
+        return f.mem[:self._b_local * self._msize].view(self._b_local,
+                                                        self._msize)
+
     def _full_mem(self, i: int) -> np.ndarray:
         if self._mem_full is None:
-            self._mem_full = self._final.mem[:-1].view(
-                self._B, self._msize).cpu().numpy()
+            self._mem_full = np.concatenate(
+                [self._rows(f).cpu().numpy() for f in self._finals])
         row = self._mem_full[i]
         return row[:self._n_keep[i]] if self._n_keep is not None else row
 
@@ -484,22 +570,30 @@ class LaunchHandle:
 
     def device_mem(self, i: int = 0,
                    region: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        """Launch ``i``'s final-memory ``[lo, hi)`` slice on the device
-        (default: the full image): a view of the final memory, for feeding
-        a consumer launch's ``patches``. Callers only read it."""
+        """Launch ``i``'s final-memory ``[lo, hi)`` slice on its shard's
+        device (default: the full image): a view of the final memory, for
+        feeding a consumer launch's ``patches``. Callers only read it."""
+        if not 0 <= i < self._B:
+            raise IndexError(f"launch {i} of {self._B}")
         if region is None:
             size = (self._n_keep[i] if self._n_keep is not None
                     else self._msize)
             region = (0, size)
         lo, hi = region
-        base = i * self._msize
-        return self._final.mem[base + lo:base + hi]
+        shard, row = divmod(i, self._b_local)
+        base = row * self._msize
+        return self._finals[shard].mem[base + lo:base + hi]
 
     def device_mem_block(self, lo: int, hi: int) -> torch.Tensor:
         """All ``B`` launches' ``[lo, hi)`` slices as one ``(B, hi - lo)``
-        view of the final memory, for a consumer chunk's ``BlockPatch``."""
-        return self._final.mem[:self._B * self._msize].view(
-            self._B, self._msize)[:, lo:hi]
+        tensor, for a consumer chunk's ``BlockPatch``: a view of the final
+        memory when unsharded; sharded, the shards' rows gathered on the
+        first shard's device (device to device, no host hop)."""
+        if len(self._finals) == 1:
+            return self._rows(self._finals[0])[:self._B, lo:hi]
+        dev = self._finals[0].mem.device
+        return torch.cat([self._rows(f)[:, lo:hi].to(dev)
+                          for f in self._finals])[:self._B]
 
     def results(self) -> List[Tuple[np.ndarray, dict]]:
         """All launches as (mem, info) pairs — exactly what the sync entry
@@ -520,19 +614,47 @@ def _stage(mems: Sequence[np.ndarray], device) -> torch.Tensor:
     return torch.from_numpy(flat).to(device)
 
 
-def _dispatch(cfg, kind, progs, mems, n_items, sizes, W, ops, dev, *,
-              n_keep=None, regions=None, patches=None) -> LaunchHandle:
-    """Validate the regions, stage (``mems``: equal-size images), patch and
-    run ``B = len(mems)`` folded machines; the handle of the result."""
-    B, msize = len(mems), mems[0].shape[0]
-    regions = _check_regions(regions, B, sizes)
-    staged = _stage(mems, dev)
-    if patches is not None:
-        _patch_flat(staged, msize, patches)
-    final = run_machine(cfg, torch.from_numpy(progs).to(dev), staged,
-                        n_items, sizes, W, ops)
-    return LaunchHandle(final, cfg, kind, B, msize, n_keep, regions,
+def _dispatch(cfg, kind, progs, mems, n_items, sizes, W, ops, devices, *,
+              B=None, n_keep=None, regions=None,
+              patches=None) -> LaunchHandle:
+    """Validate the regions, stage, patch and run the folded machines of
+    one dispatch. ``mems`` (equal-size images), ``n_items`` and ``sizes``
+    hold every row, padding included, split evenly over ``devices``, one
+    machine (shard) per entry; ``progs`` is one program or one per row;
+    the first ``B`` rows (default: all) are the caller's launches."""
+    rows, msize = len(mems), mems[0].shape[0]
+    B = rows if B is None else B
+    regions = _check_regions(regions, B, sizes[:B])
+    b_local = rows // len(devices)
+    jobs, staged = [], []
+    for k, dev in enumerate(devices):
+        lo, hi = k * b_local, (k + 1) * b_local
+        buf = _stage(mems[lo:hi], dev)
+        if patches is not None:
+            mine = _patch_shard(patches, lo, min(hi, B))
+            if mine is not None:
+                _patch_flat(buf, msize, mine)
+        prog = progs if progs.shape[0] == 1 else progs[lo:hi]
+        jobs.append((torch.from_numpy(prog).to(dev), buf, n_items[lo:hi],
+                     sizes[lo:hi], W, ops))
+        staged.append(buf)
+    finals = run_machines(cfg, jobs)
+    return LaunchHandle(finals, cfg, kind, B, msize, n_keep, regions,
                         None if kind == "single" else B, staged)
+
+
+def _check_legacy(cfg: GGPUConfig, W: int) -> None:
+    """The legacy stepper's refusals, the reference's: what the seed
+    model did not have."""
+    if not isinstance(get_memsys(cfg.memsys), SharedCache):
+        raise ValueError("legacy reference stepper only models 'shared'")
+    if cfg.pipeline_depth:
+        raise ValueError("legacy reference stepper predates the "
+                         "pipeline_depth knob (seed model: depth 0 only)")
+    if W % cfg.n_cus:
+        raise ValueError(f"legacy reference stepper ranks W = {W} "
+                         f"wavefronts in {cfg.n_cus} CU columns; it predates "
+                         "ragged-W rounding and needs W % n_cus == 0")
 
 
 def run_kernel_async(prog: np.ndarray, mem0: np.ndarray, n_items: int,
@@ -543,29 +665,34 @@ def run_kernel_async(prog: np.ndarray, mem0: np.ndarray, n_items: int,
     ``out_region=(lo, hi)`` limits the eventual memory download to that
     slice of the final image. ``patches`` optionally overwrites regions of
     the staged memory with device tensors before the run (a flat list of
-    ``(lo, hi, src[, "xor"])``, or a block patch of one row). Runs on the
+    ``(lo, hi, src[, "xor"])``, or a block patch of one row). ``legacy``
+    runs the seed-faithful reference stepper (module doc). Runs on the
     card unless ``device`` names another (``"cpu"``: the plain path)."""
-    if legacy:
-        raise NotImplementedError(LEGACY_TODO)
     dev = _device.resolve(device)
     prog = np.asarray(prog, np.int32)
     mem0 = np.asarray(mem0, np.int32)
     msize = mem0.shape[0]
+    W = _n_wavefronts(int(n_items), cfg)
+    ops = _static_ops(prog)
+    if legacy:
+        _check_legacy(cfg, W)
+        cfg, ops = dataclasses.replace(cfg, fuse=1), None
     if patches is not None:
         patches = (patches if isinstance(patches, (BlockPatch, XorBlockPatch))
                    else [list(patches)])
         _check_patches(patches, 1, [msize])
     return _dispatch(cfg, "single", prog[None], [mem0], [int(n_items)],
-                     [msize], _n_wavefronts(int(n_items), cfg),
-                     _static_ops(prog), dev,
+                     [msize], W, ops, [dev],
                      regions=None if out_region is None else [out_region],
                      patches=patches)
 
 
 def run_kernel(prog: np.ndarray, mem0: np.ndarray, n_items: int,
                cfg: GGPUConfig, *, legacy: bool = False, device=None):
-    """Execute a kernel. Returns (mem_final, info dict). Runs on the card
-    unless ``device`` names another (``"cpu"``: the plain path)."""
+    """Execute a kernel. Returns (mem_final, info dict). ``legacy=True``
+    runs the seed-faithful reference stepper (identical results and
+    cycles; one host check a round). Runs on the card unless ``device``
+    names another (``"cpu"``: the plain path)."""
     return run_kernel_async(prog, mem0, n_items, cfg, legacy=legacy,
                             device=device).result()
 
@@ -579,7 +706,11 @@ def run_kernel_cohort_async(prog: np.ndarray, mems: Sequence[np.ndarray],
     ``out_regions`` optionally declares one download slice per launch
     (``None`` entries download that launch's full image). ``patches``: a
     ``BlockPatch``/``XorBlockPatch`` or one ``[(lo, hi, src), ...]`` list
-    per launch (see the patch protocol above). ``mesh`` is not ported."""
+    per launch (see the patch protocol above). ``mesh`` (a
+    ``LaunchMesh``) shards the launch axis, one folded machine per entry
+    over ``cohort_rows(B, shards)`` rows (module doc); unsharded, the
+    launches run on ``device`` (default: the mesh's first entry, else the
+    card)."""
     prog = np.asarray(prog, np.int32)
     mems = [np.asarray(m, np.int32) for m in mems]
     if not mems:
@@ -590,23 +721,27 @@ def run_kernel_cohort_async(prog: np.ndarray, mems: Sequence[np.ndarray],
     B = len(mems)
     if patches is not None:
         _check_patches(patches, B, [msize] * B)
-    launch_shards(mesh)
-    dev = _device.resolve(device)
-    return _dispatch(cfg, "cohort", prog[None], mems, [int(n_items)] * B,
-                     [msize] * B, _n_wavefronts(int(n_items), cfg),
-                     _static_ops(prog), dev, regions=out_regions,
+    shards = launch_shards(mesh)
+    kind, devices = "cohort", [_placement(mesh, device)]
+    if shards > 1 and B > 1:
+        kind, devices = "shard-cohort", list(mesh.devices)
+        mems = mems + [mems[0]] * (cohort_rows(B, shards) - B)
+    rows = len(mems)
+    return _dispatch(cfg, kind, prog[None], mems, [int(n_items)] * rows,
+                     [msize] * rows, _n_wavefronts(int(n_items), cfg),
+                     _static_ops(prog), devices, B=B, regions=out_regions,
                      patches=patches)
 
 
 def run_kernel_cohort(prog: np.ndarray, mems: Sequence[np.ndarray],
-                      n_items: int, cfg: GGPUConfig, *, device=None
-                      ) -> List[Tuple[np.ndarray, dict]]:
+                      n_items: int, cfg: GGPUConfig, *, mesh=None,
+                      device=None) -> List[Tuple[np.ndarray, dict]]:
     """Execute the same kernel over B memory images as one folded machine
     (B*W wavefronts, per-element accounting). Bit-exact per launch."""
     mems = list(mems)                # materialize once: iterators welcome
     if not mems:
         return []
-    return run_kernel_cohort_async(prog, mems, n_items, cfg,
+    return run_kernel_cohort_async(prog, mems, n_items, cfg, mesh=mesh,
                                    device=device).results()
 
 
@@ -619,7 +754,10 @@ def run_kernel_batch_async(progs: Sequence[np.ndarray],
     """Dispatch N heterogeneous launches as one folded machine (padding as
     ``run_kernel_batch``). ``out_regions`` and ``patches`` are checked
     against each launch's own memory size, not the padded envelope.
-    ``mesh`` is not ported."""
+    ``mesh`` shards the launch axis, padding N up to a multiple of the
+    shard count with 1-item HALT fillers (module doc); unsharded, the
+    launches run on ``device`` (default: the mesh's first entry, else the
+    card)."""
     if not (len(progs) == len(mems) == len(n_items)):
         raise ValueError("progs, mems, n_items must have equal length")
     if not progs:
@@ -627,11 +765,18 @@ def run_kernel_batch_async(progs: Sequence[np.ndarray],
     progs = [np.asarray(p, np.int32) for p in progs]
     mems = [np.asarray(m, np.int32) for m in mems]
     n_items = [int(n) for n in n_items]
-    sizes = [m.shape[0] for m in mems]
+    B = len(progs)
     if patches is not None:
-        _check_patches(patches, len(progs), sizes)
-    launch_shards(mesh)
-    dev = _device.resolve(device)
+        _check_patches(patches, B, [m.shape[0] for m in mems])
+    shards = launch_shards(mesh)
+    devices = [_placement(mesh, device)]
+    if shards > 1 and B > 1:
+        devices = list(mesh.devices)
+        pad = -B % shards
+        progs = progs + [np.zeros((1, 5), np.int32)] * pad      # HALT
+        mems = mems + [np.zeros(1, np.int32)] * pad
+        n_items = n_items + [1] * pad
+    sizes = [m.shape[0] for m in mems]
     P = max(p.shape[0] for p in progs)
     M = max(sizes)
     prog_b = np.stack([np.pad(p, ((0, P - p.shape[0]), (0, 0)))
@@ -640,13 +785,13 @@ def run_kernel_batch_async(progs: Sequence[np.ndarray],
     ops = tuple(sorted(set().union(*(_static_ops(p) for p in progs))))
     return _dispatch(cfg, "batch", prog_b,
                      [np.pad(m, (0, M - m.shape[0])) for m in mems], n_items,
-                     sizes, W, ops, dev, n_keep=sizes, regions=out_regions,
-                     patches=patches)
+                     sizes, W, ops, devices, B=B, n_keep=sizes[:B],
+                     regions=out_regions, patches=patches)
 
 
 def run_kernel_batch(progs: Sequence[np.ndarray],
                      mems: Sequence[np.ndarray],
-                     n_items: Sequence[int], cfg: GGPUConfig, *,
+                     n_items: Sequence[int], cfg: GGPUConfig, *, mesh=None,
                      device=None) -> List[Tuple[np.ndarray, dict]]:
     """Execute N heterogeneous kernel launches as one folded machine.
 
@@ -658,4 +803,4 @@ def run_kernel_batch(progs: Sequence[np.ndarray],
     if not progs:
         return []
     return run_kernel_batch_async(progs, list(mems), list(n_items), cfg,
-                                  device=device).results()
+                                  mesh=mesh, device=device).results()

@@ -1,10 +1,14 @@
-"""The model-side wrapper of the attention kernel (the port's
-``repro.kernels.ops``): the (B, S, H, hd) <-> (BH, S, hd) head fold
-around ``flash_attention``. The RG-LRU scan needs no fold: the model
-calls ``kernels.rglru_scan`` directly."""
+"""The public wrappers of the port's kernels (the port's
+``repro.kernels.ops``): ``flash_attention`` with the (B, S, H, hd) <->
+(BH, S, hd) head fold, and ``rglru_scan`` and ``pe_execute`` as the
+kernel modules give them (each launches its CUDA kernel on a CUDA tensor
+and runs its plain version on a CPU one). Callers may import the kernel
+modules directly; the model and the stepper do."""
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import pe_simd as _pe
+from repro_torch.kernels import rglru_scan as _rg
 
 
 def fold_heads(q, k, v):
@@ -31,3 +35,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     o = _fa.flash_attention(*fold_heads(q, k, v), causal=causal,
                             window=window, scale=scale)
     return unfold_heads(o, q.shape[0])
+
+
+def rglru_scan(a, b, h0):
+    """(B, S, D) recurrence h_t = a_t * h_{t-1} + b_t from h0 (B, D) ->
+    (h (B, S, D), h_final (B, D)); see ``kernels/rglru_scan.py``."""
+    return _rg.rglru_scan(a, b, h0)
+
+
+def pe_execute(op, imm, a, b, ops_present=None):
+    """The G-GPU execute stage: op, imm (W, 1), a, b (W, L) int32 ->
+    (W, L) int32; see ``kernels/pe_simd.py``."""
+    return _pe.pe_execute(op, imm, a, b, ops_present)

@@ -35,14 +35,24 @@ time it is collected, and only a chunk that something holds back — a
 fault injector's straggler or stuck device (``repro_torch.faults``) — can
 run out of it.
 
+An executor carries its **placement**: a ``device`` (resolved by
+``repro_torch._device``, the card by default) and optionally a ``mesh``
+(``repro_torch.launch.mesh.LaunchMesh``) that shards every cohort and
+batch chunk's launch axis, one folded machine per mesh entry
+(``repro_torch.ggpu.engine`` ``mesh=`` entry points). ``shards`` is the
+mesh's extent (1 without one); schedulers plan ``shards`` times wider
+chunks. A mesh executor's single launches, and every launch when the
+extent is 1, run unsharded on ``device`` (default: the mesh's first
+entry). The placement enters the envelope key.
+
 ``get_executor`` is a process-wide registry keyed by the simulation key
-*and the device*, so a CPU executor's memo never answers a card query;
-callers with a non-default frequency get a view that shares the canonical
-executor's envelope cache, stats and memo but reports at their true
-frequency. The DSE ``Evaluator`` keeps its cycle cache on these executors
-(``Executor.memo``). ``device`` is resolved by ``repro_torch._device``
-(the card by default); ``mesh`` sharding is not ported (a mesh raises),
-so ``shards`` is 1.
+*and the placement's devices*, so a CPU executor's memo never answers a
+card query, nor one card's another's: a mesh that repeats one device
+shares that device's canonical state, a mesh over several devices has its
+own. Callers with a non-default frequency or a mesh get a view that
+shares the canonical executor's envelope cache, stats and memo but
+reports at their true frequency. The DSE ``Evaluator`` keeps its cycle
+cache on these executors (``Executor.memo``).
 """
 from __future__ import annotations
 
@@ -50,14 +60,13 @@ import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
 
-from repro_torch import _device
 from repro_torch.ggpu.engine import (BlockPatch, GGPUConfig,
                                      KernelLaunchError, LaunchHandle,
                                      XorBlockPatch, cohort_rows,
                                      launch_shards, run_kernel_async,
                                      run_kernel_batch_async,
                                      run_kernel_cohort_async)
-from repro_torch.ggpu.engine.stepper import _n_wavefronts
+from repro_torch.ggpu.engine.stepper import _n_wavefronts, _placement
 from repro_torch.serve.request import Request, Result
 
 
@@ -133,8 +142,10 @@ class Executor:
 
     ``share`` hands this executor another one's mutable state (envelope
     cache, stats, memo) — how the registry builds frequency-faithful views
-    over one canonical executor per (simulation key, device). ``device``
-    is where chunks run (``None``: the card); ``mesh`` is not ported.
+    over one canonical executor per (simulation key, placement).
+    ``device`` is where unsharded chunks run (``None``: the mesh's first
+    entry, else the card); ``mesh`` shards cohort and batch chunks
+    (module doc).
     ``timeout_s`` bounds how long ``collect`` waits on a chunk that is not
     ready (module doc)."""
 
@@ -145,7 +156,9 @@ class Executor:
         self.cfg = cfg                    # reporting config (true freq)
         self.sim_cfg = sim_key(cfg)       # engine config
         self.shards = launch_shards(mesh)
-        self.device = _device.resolve(device)
+        self.mesh = mesh
+        self.device = _placement(mesh, device)
+        self.placement = _placement_key(mesh, self.device)
         # wall-clock budget of a dispatched chunk before ``collect`` gives
         # up with ``DeviceTimeout`` (None: wait forever, the default)
         self.timeout_s = timeout_s
@@ -157,9 +170,9 @@ class Executor:
             if share.sim_cfg != self.sim_cfg:
                 raise ValueError("shared executors must agree on the "
                                  "simulation key")
-            if share.device != self.device:
+            if share.placement != self.placement:
                 raise ValueError("shared executors must agree on the "
-                                 "device")
+                                 "placement's devices")
             self.stats = share.stats
             self.memo = share.memo
             self._envelopes = share._envelopes
@@ -170,7 +183,8 @@ class Executor:
         """The reference's static signature for this chunk, suffixed with
         this executor's placement."""
         cfg = self.sim_cfg
-        place = (self.shards, str(self.device))
+        place = (self.shards, str(self.device) if self.mesh is None
+                 else tuple(str(d) for d in self.mesh.devices))
         if kind == "cohort":
             r = reqs[0]
             return ("cohort", cohort_rows(len(reqs), self.shards),
@@ -209,12 +223,13 @@ class Executor:
         if kind == "cohort":
             h = run_kernel_cohort_async(
                 reqs[0].prog, [r.mem0 for r in reqs], reqs[0].n_items,
-                cfg, out_regions=regions, patches=patches, device=dev)
+                cfg, out_regions=regions, patches=patches, mesh=self.mesh,
+                device=dev)
         elif kind == "batch":
             h = run_kernel_batch_async(
                 [r.prog for r in reqs], [r.mem0 for r in reqs],
                 [r.n_items for r in reqs], cfg, out_regions=regions,
-                patches=patches, device=dev)
+                patches=patches, mesh=self.mesh, device=dev)
         else:
             # the chunk-level patch forms, as the single launch's flat list
             single = None
@@ -274,26 +289,40 @@ class Executor:
 
 # -- process-wide registry (shared with repro_torch.dse.Evaluator) ----------
 
-_EXECUTORS: Dict[tuple, Executor] = {}     # canonical, by (sim key, device)
-_VIEWS: Dict[tuple, Executor] = {}         # frequency views
+_EXECUTORS: Dict[tuple, Executor] = {}  # canonical, by (sim key, placement)
+_VIEWS: Dict[tuple, Executor] = {}      # frequency and mesh views
+
+
+def _placement_key(mesh, device):
+    """What a memo may be shared across: the device when every launch
+    runs there (no mesh, or a mesh that repeats ``device``), else the
+    mesh."""
+    if mesh is None or all(d == device for d in mesh.devices):
+        return device
+    return mesh
 
 
 def get_executor(cfg: GGPUConfig, *, mesh=None, device=None) -> Executor:
-    """The shared executor for ``cfg``'s simulation key on ``device`` (the
-    card by default), reporting at ``cfg``'s true frequency: a
-    non-default-frequency caller gets a view sharing the canonical
-    executor's envelope cache, stats and memo, with ``time_us`` rescaled
-    at the caller's ``freq_mhz``."""
-    launch_shards(mesh)
-    dev = _device.resolve(device)
+    """The shared executor for ``cfg``'s simulation key on its placement
+    (``device``, the card by default; ``mesh`` as ``Executor``), reporting
+    at ``cfg``'s true frequency: a non-default-frequency or mesh-placed
+    caller gets a view (keyed by frequency and placement) sharing the
+    canonical executor's envelope cache, stats and memo, with ``time_us``
+    rescaled at the caller's ``freq_mhz``."""
+    launch_shards(mesh)                   # only a LaunchMesh shards
+    dev = _placement(mesh, device)
+    place = _placement_key(mesh, dev)
     key = sim_key(cfg)
-    canon = _EXECUTORS.get((key, dev))
+    canon = _EXECUTORS.get((key, place))
     if canon is None:
-        canon = _EXECUTORS.setdefault((key, dev), Executor(key, device=dev))
-    if cfg == key:
+        canon = _EXECUTORS.setdefault(
+            (key, place), Executor(key, device=dev,
+                                   mesh=None if place == dev else mesh))
+    if cfg == key and mesh == canon.mesh:
         return canon
-    view = _VIEWS.get((cfg, dev))
+    view = _VIEWS.get((cfg, mesh, dev))
     if view is None:
         view = _VIEWS.setdefault(
-            (cfg, dev), Executor(cfg, share=canon, device=dev))
+            (cfg, mesh, dev), Executor(cfg, share=canon, mesh=mesh,
+                                       device=dev))
     return view

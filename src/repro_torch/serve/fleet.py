@@ -14,10 +14,10 @@ cycle model once the device has served that kernel, from an analytic
 occupancy proxy (wavefront rounds / CU parallelism, scaled by clock) on a
 cold start — and picks the device minimizing (modeled queue backlog +
 estimated service time), with the backlog discounted by the device's
-shard width (``_shard_scale``; 1 in the port, whose executors do not
-shard). Modeled wall-clock of a fleet is the makespan: the max over
-devices of the sum of served launch times (devices run in parallel);
-``pinned_makespan`` prices the whole trace on one config for comparison.
+shard width (``_shard_scale``: its executor's mesh extent). Modeled
+wall-clock of a fleet is the makespan: the max over devices of the sum
+of served launch times (devices run in parallel); ``pinned_makespan``
+prices the whole trace on one config for comparison.
 
 **Kernel graphs.** A request carrying ``deps`` is not routed freely: its
 producers' device-resident outputs feed it with no host hop, so it must
@@ -36,8 +36,17 @@ simulated device's executor on that torch device (the card by default;
 device before collecting any, as the reference does, but a port dispatch
 returns only after its chunk has retired, so the simulated devices take
 turns on the card: modeled ``busy_us`` and ``makespan_us`` are the
-reference's, and wall-clock fleet numbers are the card's own. ``mesh=``
-(binding simulated devices to physical ones) is not ported and raises.
+reference's, and wall-clock fleet numbers are the card's own.
+
+**Placement on a mesh.** ``Fleet(mesh=)`` (a
+``repro_torch.launch.mesh.LaunchMesh``) binds simulated devices to the
+mesh's entries: ``_mesh_slices`` cuts the entries into one contiguous
+slice per simulated device, largest first. A slice of several entries
+becomes that device's sub-mesh (its executor shards each chunk over
+them, ``FleetDevice.mesh``), a slice of one entry its executor's
+``device``; an empty slice (more simulated devices than entries) leaves
+the device unplaced, on the fleet's ``device``. The router's backlog then
+reads each device's real shard width.
 """
 from __future__ import annotations
 
@@ -49,16 +58,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import _device
-from repro_torch.ggpu.engine import GGPUConfig, KernelLaunchError
+from repro_torch.ggpu.engine import (GGPUConfig, KernelLaunchError,
+                                     launch_shards)
+from repro_torch.launch.mesh import LaunchMesh
 from repro_torch.registry import ROUTERS
 from repro_torch.serve.executors import Executor
 from repro_torch.serve.request import Request, Result
 from repro_torch.serve.scheduler import (Quarantined, RetryPolicy, Scheduler,
                                          wavefronts)
-
-#: what ``Fleet(mesh=...)`` raises with
-MESH_TODO = ("Fleet(mesh=) placement on several cards is not ported yet: "
-             "ROADMAP.md, queue 1, item 9")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,16 +99,19 @@ class FleetResilience:
 @dataclasses.dataclass
 class FleetDevice:
     """One config in the fleet, with its scheduler and load accounting.
-    ``device`` is the torch device its executor runs on. The health
-    fields move only under a :class:`FleetResilience` policy:
-    ``state`` walks active -> evicted -> probation -> active, ``faults``
-    counts device-blamed quarantines, ``served`` successful results."""
+    ``device`` is the torch device its executor runs unsharded launches
+    on, ``mesh`` its sub-mesh when it is bound to several mesh entries
+    (``None`` otherwise). The health fields move only under a
+    :class:`FleetResilience` policy: ``state`` walks active -> evicted ->
+    probation -> active, ``faults`` counts device-blamed quarantines,
+    ``served`` successful results."""
     name: str
     cfg: GGPUConfig
     scheduler: Scheduler
     eta_us: float = 0.0        # modeled backlog the router sees (estimates)
     busy_us: float = 0.0       # actual modeled service time after drain
     device: object = None      # torch device of its executor
+    mesh: object = None        # sub-mesh when bound to >1 mesh entries
     state: str = "active"      # active | evicted | probation
     served: int = 0            # successful results (health numerator)
     faults: int = 0            # device-blamed quarantines (lifetime)
@@ -119,18 +129,32 @@ class FleetDevice:
         return (1.0 + self.served) / (1.0 + self.served + 4.0 * self.faults)
 
 
+def _mesh_slices(mesh, n: int) -> List[list]:
+    """Partition a launch mesh's entries into ``n`` contiguous slices,
+    proportionally (largest first). Empty slices mean the fleet outnumbers
+    the mesh's entries; those simulated devices stay unplaced."""
+    devices = list(mesh.devices)
+    out, lo = [], 0
+    for i in range(n):
+        take = -((len(devices) - lo) // -(n - i))   # ceil of remaining/n
+        out.append(devices[lo:lo + take])
+        lo += take
+    return out
+
+
 class Fleet:
     """Routes submissions across devices; drains every device's scheduler.
 
     ``configs`` may be raw ``GGPUConfig``s or (name, config) pairs —
     e.g. ``[(p.label(), p.point.config) for p in result.frontier]``.
     ``device`` is the torch device every simulated device runs on
-    (``None``: the card); ``mesh`` raises (module doc). ``router`` picks
-    the placement strategy by registered name (the ``ROUTERS`` registry
-    axis; ``"earliest-finish"`` is the legacy greedy placement, see
-    ``repro_torch.serve.routing``) or as a router instance/class with a
-    ``pick(fleet, req)`` method. ``policy`` is forwarded to every device
-    scheduler (``SCHEDULERS`` axis).
+    (``None``: the card); ``mesh`` binds simulated devices to the mesh's
+    entries instead, ``device`` then holding only the unplaced ones
+    (module doc). ``router`` picks the placement strategy by registered
+    name (the ``ROUTERS`` registry axis; ``"earliest-finish"`` is the
+    legacy greedy placement, see ``repro_torch.serve.routing``) or as a
+    router instance/class with a ``pick(fleet, req)`` method. ``policy``
+    is forwarded to every device scheduler (``SCHEDULERS`` axis).
     """
 
     def __init__(self, configs: Sequence, max_batch: int = 64, *,
@@ -140,25 +164,29 @@ class Fleet:
                  retry: Optional[RetryPolicy] = None,
                  timeout_s: Optional[float] = None,
                  executor_wrap: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
-        dev = _device.resolve(device)
+        configs = list(configs)
+        launch_shards(mesh)                   # only a LaunchMesh places
+        slices = _mesh_slices(mesh, len(configs)) if mesh is not None \
+            else [[] for _ in configs]
         self.devices: List[FleetDevice] = []
         for i, c in enumerate(configs):
             name, cfg = c if isinstance(c, tuple) else (f"dev{i}", c)
+            sub_mesh = LaunchMesh(slices[i]) if len(slices[i]) > 1 else None
+            dev = slices[i][0] if slices[i] else _device.resolve(device)
             # the scheduler's private executor is built here (identical
             # to what Scheduler(cfg, ...) would build) so a caller's
             # ``executor_wrap(name, executor)`` hook — e.g. a
             # ``repro_torch.faults.FaultInjector`` — can interpose per
             # device
-            ex = Executor(cfg, device=dev, timeout_s=timeout_s)
+            ex = Executor(cfg, mesh=sub_mesh, device=dev,
+                          timeout_s=timeout_s)
             if executor_wrap is not None:
                 ex = executor_wrap(name, ex) or ex
             self.devices.append(FleetDevice(
                 name, cfg,
                 Scheduler(executor=ex, max_batch=max_batch, policy=policy,
                           retry=retry),
-                device=dev))
+                device=dev, mesh=sub_mesh))
         if len(self.devices) < 1:
             raise ValueError("fleet needs at least one device")
         self.resilience = resilience
@@ -208,10 +236,9 @@ class Fleet:
         """Backlog scale for a device's physical shard width: a device
         that dispatches same-shape launches ``shards`` abreast drains a
         stream of launches ~``shards``x faster in wall-clock even though
-        each launch's modeled cycles are unchanged. The port's executors
-        do not shard (``shards`` is 1), so the scale is 1 until multi-GPU
-        placement lands (ROADMAP.md, item 9); ``busy_us``/``makespan_us``
-        (modeled *compute*) never see it."""
+        each launch's modeled cycles are unchanged. ``shards`` is the
+        extent of the device's sub-mesh (1 unsharded);
+        ``busy_us``/``makespan_us`` (modeled *compute*) never see it."""
         return 1.0 / max(1, dev.scheduler.executor.shards)
 
     def finish_us(self, dev: FleetDevice, req: Request) -> float:

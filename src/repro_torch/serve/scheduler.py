@@ -189,13 +189,15 @@ class Scheduler:
 
     Construct from a config (the scheduler owns a private ``Executor``) or
     hand it a shared one (e.g. ``executors.get_executor`` — how the DSE
-    evaluator shares executors and their memo). ``device`` sets the
-    private executor's device (``None``: the card); ``mesh`` is not
-    ported. Chunks are planned at ``max_batch * executor.shards``
-    launches. ``policy`` selects the chunk-planning strategy by registered
-    name (the ``SCHEDULERS`` registry axis; ``"cohort"`` is the legacy
-    plan, see ``repro_torch.serve.policies``) or as a direct callable with
-    the ``plan_chunks`` contract."""
+    evaluator shares executors and their memo). ``mesh`` and ``device``
+    set the private executor's placement (``Executor``: a
+    ``LaunchMesh`` shards each chunk's launch axis; ``device`` defaults
+    to the mesh's first entry, else the card). Chunks are planned at
+    ``max_batch * executor.shards`` launches. ``policy`` selects the
+    chunk-planning strategy by registered name (the ``SCHEDULERS``
+    registry axis; ``"cohort"`` is the legacy plan, see
+    ``repro_torch.serve.policies``) or as a direct callable with the
+    ``plan_chunks`` contract."""
 
     def __init__(self, cfg: Optional[GGPUConfig] = None, *,
                  executor: Optional[Executor] = None, max_batch: int = 64,

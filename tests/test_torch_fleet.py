@@ -149,7 +149,7 @@ def test_fleet_placement_and_defaults():
     with pytest.raises(ValueError, match="unique"):
         Fleet([("dev", GGPUConfig(n_cus=1)), ("dev", GGPUConfig(n_cus=2))],
               device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LaunchMesh"):
         Fleet([GGPUConfig()], mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="at least one"):
         Fleet([], device=CPU)

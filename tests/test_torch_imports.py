@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "repro_torch.configs.llama4_scout_17b_a16e",
                  "repro_torch.configs.granite_8b",
                  "repro_torch.configs.qwen1_5_0_5b",
-                 "repro_torch.configs.qwen1_5_4b"):
+                 "repro_torch.configs.qwen1_5_4b",
+                 "repro_torch.launch.mesh"):
         assert name in mods
     # the kernel wrapper first: it must import on its own (no cycle)
     mods.remove("repro_torch.kernels.pe_simd")
@@ -103,12 +104,20 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_legacy_stepper_names_its_roadmap_item():
+    """The legacy stepper (ROADMAP item 4) runs on the plain path, equal
+    to the fused engine, and refuses what the reference's refuses."""
     from repro_torch.ggpu import programs
     from repro_torch.ggpu.engine import GGPUConfig, run_kernel
     b = programs.build("copy", *programs.SMOKE_SIZES["copy"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_kernel(b.gpu_prog, b.gpu_mem, b.gpu_items, GGPUConfig(),
-                   legacy=True, device="cpu")
+    args = (b.gpu_prog, b.gpu_mem, b.gpu_items)
+    mem, info = run_kernel(*args, GGPUConfig(), device="cpu")
+    mem_l, info_l = run_kernel(*args, GGPUConfig(), legacy=True,
+                               device="cpu")
+    np.testing.assert_array_equal(mem, mem_l)
+    assert info == info_l
+    with pytest.raises(ValueError, match="shared"):
+        run_kernel(*args, GGPUConfig(memsys="banked"), legacy=True,
+                   device="cpu")
 
 
 def test_chip_smoke_refuses_a_host_without_a_card():
