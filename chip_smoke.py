@@ -150,7 +150,21 @@ Phases, each fatal on any mismatch:
      the checkpoints' seconds and bytes, a determinism probe and a
      2-step profile; then the Trainer at 4 layers (bf16) for 6 steps
      uninterrupted against a run that fails at step 4 and resumes from
-     its step-3 checkpoint, equal bit for bit;
+     its step-3 checkpoint, equal bit for bit. The launcher builds its
+     (data, model) mesh and sharding rules over the world: on one card a
+     world of one, a (1, 1) mesh;
+  11b. sharded training (lm_train_sharded): python -m
+     repro_torch.launch.train at full width for 4 steps, started alone
+     (it opens an NCCL world of one and closes it), its sharded Trainer
+     on the (1, 1) mesh held bit for bit against the one-device Trainer
+     (rules=None) over the same 4 steps: losses, parameters, both AdamW
+     moments and the step (within the determinism probe's reading, if
+     phase 11's probe found the card's gradients irreproducible); its
+     checkpoint restored on one device and, in a new world, onto a new
+     (1, 1) mesh by the Trainer's elastic resume, both bit for bit; step
+     ms sharded and unsharded, peak memory against the plan, and the
+     gather and reduce spans of one more step, each timed to a
+     synchronize;
   12. MoE serving (lm_moe_path): mixtral-8x7b at full width, 1 layer, f32
      compute, through Engine.generate and the kernels: six prompts (4,160
      to 12 tokens) in two waves of 4 slots, 16 greedy tokens; every
@@ -223,6 +237,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch import compiler  # noqa: E402
 from repro_torch.compiler import suite  # noqa: E402
@@ -246,7 +262,8 @@ from repro_torch.kernels.ref import attention_ref, rglru_scan_ref  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig, SyntheticLM,  # noqa: E402
                                        to_device)
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.mesh import LaunchMesh, make_launch_mesh  # noqa
+from repro_torch.launch.mesh import LaunchMesh, make_host_mesh, \
+    make_launch_mesh  # noqa: E402
 from repro_torch.models import attention as MA  # noqa: E402
 from repro_torch.models import layers as ML  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -254,10 +271,13 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models.schema import init_numpy  # noqa: E402
 from repro_torch.models.config import ShapeSpec  # noqa: E402
+from repro_torch.models import steps as steps_mod  # noqa: E402
 from repro_torch.models.steps import make_train_step  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.roofline.analysis import (PEAK_FLOPS,  # noqa: E402
                                            model_flops_estimate)
+from repro_torch.sharding import set_rules  # noqa: E402
+from repro_torch.sharding.rules import is_whole, make_rules  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainConfig  # noqa: E402
 from repro_torch.models.recurrent import linear_scan  # noqa: E402
@@ -3065,18 +3085,18 @@ def _grads_of(model, cfg, batch) -> dict:
     return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
 
-def train_profile(trainer, model, opt, steps: int = 2) -> dict:
+def train_profile(trainer, model, params, opt, steps: int = 2) -> dict:
     """Busy share and top device ops of ``steps`` train steps: each run
     unprofiled (host wall clock to a synchronize) and then under
     torch.profiler, on the main path's next batches."""
     first = trainer.tc.steps
-    batches = [to_device(trainer.data.batch_at(first + i), trainer.device)
-               for i in range(2 * steps)]
+    batches = [trainer.put_batch(first + i) for i in range(2 * steps)]
 
     def run(bs):
         def fn():
-            for b in bs:
-                trainer.step_fn(model, opt, b)
+            with set_rules(trainer.rules):
+                for b in bs:
+                    trainer.step(model, params, opt, b)
         return fn
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3159,7 +3179,7 @@ def lm_train_main(dev) -> dict:
         "kernel_launches": dict(zip(("flash_attention", "rglru_scan"),
                                     counts[:2])),
         "determinism_probe": probe}
-    res["profile"] = train_profile(trainer, model, opt)
+    res["profile"] = train_profile(trainer, model, out["params"], opt)
     emit({"lm_train_main": res})
     check(counts == (0, 0, 0, 0), f"training launched kernels: {counts}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -3170,6 +3190,29 @@ def lm_train_main(dev) -> dict:
     del out, trainer, model, opt
     torch.cuda.empty_cache()
     return res
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x.detach()
+
+
+def _state_diff(params_a, opt_a, params_b, opt_b) -> dict:
+    """The tensors of two training states (parameters, both AdamW
+    moments, the step; a DTensor by its block, whole on a (1, 1) mesh)
+    that are not equal bit for bit, with their largest difference."""
+    pairs = [(f"params/{n}", params_a[n], params_b[n]) for n in params_b]
+    for key in ("m", "v"):
+        pairs += [(f"opt/{key}/{n}", getattr(opt_a, key)[n],
+                   getattr(opt_b, key)[n]) for n in params_b]
+    pairs.append(("opt/step", opt_a.step, opt_b.step))
+    differ = []
+    for k, x, y in pairs:
+        x, y = _local(x), _local(y)
+        if not torch.equal(x, y):
+            differ.append((k, float((x.float() - y.float()).abs().max())))
+    return {"tensors": len(pairs), "differ": len(differ),
+            "max_abs_diff": max((v for _, v in differ), default=0.0),
+            "first_differing": differ[:4]}
 
 
 def lm_train_resume(dev) -> dict:
@@ -3195,28 +3238,19 @@ def lm_train_resume(dev) -> dict:
         resumed_from = checkpoint.latest_step(f"{d}/b")
         b = Trainer(cfg, hp, tc("b"), dc, dev).run()
         wall = time.perf_counter() - t0
-    pa = dict(a["model"].named_parameters())
-    pb = dict(b["model"].named_parameters())
-    pairs = [(f"params/{n}", pa[n], pb[n]) for n in pa]
-    for key in ("m", "v"):
-        pairs += [(f"opt/{key}/{n}", getattr(a["opt"], key)[n],
-                   getattr(b["opt"], key)[n]) for n in pa]
-    differ = [(k, float((x.float() - y.float()).abs().max()))
-              for k, x, y in pairs if not torch.equal(x, y)]
+    diff = _state_diff(a["params"], a["opt"], b["params"], b["opt"])
     res = {"layers": cfg.n_layers, "compute": cfg.compute_dtype,
            "steps": RESUME_STEPS, "save_every": RESUME_SAVE_EVERY,
            "failed_with": failed, "resumed_from": resumed_from,
-           "tensors": len(pairs), "differ": len(differ),
-           "max_abs_diff": max((v for _, v in differ), default=0.0),
-           "first_differing": differ[:4], "wall_s": wall}
+           **diff, "wall_s": wall}
     emit({"lm_train_resume": res})
     check(failed == f"injected failure at step {RESUME_FAIL_AT}",
           f"the interrupted run: {failed!r}")
     check(resumed_from == RESUME_SAVE_EVERY, f"resumed from {resumed_from}")
     check(int(a["opt"].step) == int(b["opt"].step) == RESUME_STEPS,
           "AdamW step counts")
-    check(not differ, f"the resumed run differs from the uninterrupted one "
-          f"in {len(differ)} of {len(pairs)} tensors: {differ[:4]}")
+    check(diff["differ"] == 0, f"the resumed run differs from the "
+          f"uninterrupted one: {diff}")
     del a, b
     torch.cuda.empty_cache()
     return res
@@ -3227,11 +3261,166 @@ def lm_train_path(dev) -> dict:
     the resume check."""
     t0 = time.perf_counter()
     golden = lm_train_golden(dev)
-    main_res = lm_train_main(dev)
+    # a world of one around the launcher (which leaves it as found) and
+    # the profile's steps on its sharded state
+    opened = launch_train.open_world(dev)
+    try:
+        main_res = lm_train_main(dev)
+    finally:
+        if opened:
+            dist.destroy_process_group()
     resume = lm_train_resume(dev)
     return {"golden": golden, "main": main_res, "resume": resume,
             "wall_s": time.perf_counter() - t0}
 
+
+# -- phase 11b: sharded training ----------------------------------------------
+
+SHARDED_STEPS = 4
+SHARDED_ARGV = ("--arch", TRAIN_ARCH, "--full-config", "--steps",
+                str(SHARDED_STEPS), "--seq-len", str(TRAIN_SEQ), "--batch",
+                str(TRAIN_BATCH))
+SHARDED_TIMED = slice(1, SHARDED_STEPS)      # steps 2-4
+
+
+def sharded_spans(trainer, model, params, opt, step: int) -> dict:
+    """One sharded step with its gather and reduce (``steps.gather_params``
+    and ``steps._dp_mean``) each timed to a synchronize: their ms and
+    calls, and the step's."""
+    spans = {"gather": [], "reduce": []}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spans[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    batch = trainer.put_batch(step)
+    orig = steps_mod.gather_params, steps_mod._dp_mean
+    steps_mod.gather_params = timed("gather", orig[0])
+    steps_mod._dp_mean = timed("reduce", orig[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with set_rules(trainer.rules):
+            trainer.step(model, params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        steps_mod.gather_params, steps_mod._dp_mean = orig
+    return {"step_ms": step_ms, **{k: {"ms": sum(v), "calls": len(v)}
+                                   for k, v in spans.items()}}
+
+
+def lm_train_sharded(dev, probe: dict) -> dict:
+    """Phase 11b (module doc). ``probe`` is phase 11's determinism probe:
+    with no gradient differing there, the sharded and one-device states
+    must be equal bit for bit; else within its largest difference."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".train_ckpt_", dir=ROOT) as d:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = launch_train.main(list(SHARDED_ARGV)
+                                + ["--ckpt-dir", f"{d}/sharded"])
+        t0 = lap("sharded_launcher", t0)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        left_open = dist.is_initialized()
+        trainer, mp = out["trainer"], out["plan"]
+        mesh = {k: int(v) for k, v in zip(out["mesh"].mesh_dim_names,
+                                          out["mesh"].shape)}
+        whole = all(is_whole(p.device_mesh, p.placements)
+                    for p in out["params"].values())
+        plain_tr = Trainer(trainer.cfg, trainer.hp, dataclasses.replace(
+            trainer.tc, ckpt_dir=f"{d}/plain"), trainer.data.cfg, dev)
+        plain = plain_tr.run()
+        t0 = lap("unsharded_trainer", t0)
+        vs_plain = _state_diff(out["params"], out["opt"], plain["params"],
+                               plain["opt"])
+        losses = [m["loss"] for m in trainer.metrics_log]
+        plain_losses = [m["loss"] for m in plain_tr.metrics_log]
+        step_ms = {k: float(np.median([m["seconds"] for m in
+                                       log[SHARDED_TIMED]])) * 1e3
+                   for k, log in (("sharded", trainer.metrics_log),
+                                  ("unsharded", plain_tr.metrics_log))}
+        del plain, plain_tr
+        torch.cuda.empty_cache()
+        t0 = lap("compare", t0)
+
+        # the checkpoint: on one device, then onto a new mesh
+        params, opt, _ = checkpoint.restore(f"{d}/sharded", SHARDED_STEPS,
+                                            dev)
+        one_device = _state_diff(params, adamw.AdamWState(**opt),
+                                 out["params"], out["opt"])
+        del params, opt
+        t0 = lap("restore_one_device", t0)
+        opened = launch_train.open_world(dev)
+        try:
+            again = Trainer(trainer.cfg, trainer.hp, dataclasses.replace(
+                trainer.tc, ckpt_dir=f"{d}/sharded"), trainer.data.cfg,
+                rules=make_rules(make_host_mesh()))
+            t0 = lap("open_world", t0)
+            model, params, opt, start = again.resume_or_init()
+            on_mesh = _state_diff(params, opt, out["params"], out["opt"])
+            t0 = lap("restore_on_mesh", t0)
+            spans = sharded_spans(again, model, params, opt, start)
+            del model, params, opt
+            t0 = lap("spans_step", t0)
+        finally:
+            if opened:
+                dist.destroy_process_group()
+        t0 = lap("close_world", t0)
+    lap("cleanup", t0)
+    exact = probe["differ"] == 0
+    bound = 0.0 if exact else probe["max_abs_diff"]
+    res = {"arch": trainer.cfg.name, "layers": trainer.cfg.n_layers,
+           "compute": trainer.cfg.compute_dtype, "seq_len": TRAIN_SEQ,
+           "batch": TRAIN_BATCH, "steps": SHARDED_STEPS, "mesh": mesh,
+           "every_shard_whole": whole, "launcher_closed_its_world":
+           not left_open, "losses": losses, "unsharded_losses":
+           plain_losses, "vs_unsharded": vs_plain,
+           "bit_for_bit_required": exact, "bound": bound,
+           "determinism_probe": probe,
+           "ms_per_step": step_ms, "timed_steps": "2-4 (median)",
+           "peak_device_gib": peak / 2**30,
+           "plan_estimate_gib": mp.estimate.total_bytes / 2**30,
+           "peak_over_estimate": peak / mp.estimate.total_bytes,
+           "restore_one_device": one_device, "restore_on_mesh": on_mesh,
+           "spans": spans, "seconds": parts,
+           "kernel_launches": dict(zip(("flash_attention", "rglru_scan"),
+                                       counts[:2]))}
+    emit({"lm_train_sharded": res})
+    check(counts == (0, 0, 0, 0), f"sharded training launched kernels: "
+          f"{counts}")
+    check(not left_open, "the launcher left the world it opened open")
+    check(mesh == {"data": 1, "model": 1} and whole,
+          f"one card's mesh {mesh}, every shard whole: {whole}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    if exact:
+        check(losses == plain_losses and vs_plain["differ"] == 0,
+              f"the sharded Trainer differs from the one-device one: "
+              f"{vs_plain}, losses {losses} vs {plain_losses}")
+    else:
+        check(vs_plain["max_abs_diff"] <= bound,
+              f"the sharded Trainer differs from the one-device one by "
+              f"more than the determinism probe's {bound}: {vs_plain}")
+    check(one_device["differ"] == 0 and on_mesh["differ"] == 0,
+          f"checkpoint round trip: one device {one_device}, "
+          f"mesh {on_mesh}")
+    del out, trainer
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
 
 # -- phase 12: the MoE family and the dense Qwen1.5 config -------------------
 
@@ -4502,6 +4691,9 @@ def main() -> int:
     train = lm_train_path(dev)
     emit({"lm_train_path": {"wall_s": train["wall_s"]}})
     laps.append(("lm_train", time.perf_counter()))
+    sharded = lm_train_sharded(dev, train["main"]["determinism_probe"])
+    emit({"lm_train_sharded_path": {"wall_s": sharded["wall_s"]}})
+    laps.append(("lm_train_sharded", time.perf_counter()))
     moe_path = lm_moe_path(dev)
     emit({"lm_moe_path": moe_path})
     laps.append(("lm_moe", time.perf_counter()))

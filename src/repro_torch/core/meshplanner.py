@@ -5,8 +5,10 @@ The port plans for one card (``n_devices=1, tp=1``, its defaults here),
 against the H100's constants (``roofline.analysis``); ``estimate`` and
 ``plan`` keep the reference's mesh arithmetic, so the tests hold them to
 the reference's at 1, 8 and 256 devices. ``Knobs.apply`` sets the port's
-``use_kernels`` from ``use_flash_kernel``. The compile-backed
-``validate`` and ``plan_all`` are not ported (ROADMAP.md, queue item 12).
+``use_kernels`` from ``use_flash_kernel``. ``plan_all`` plans every
+architecture x shape cell (the training launcher plans for its mesh,
+``launch.train``). The compile-backed ``validate`` is not ported: it
+lowers the cell under the sharding rules (ROADMAP.md, queue item 12).
 
 The structural mapping (DESIGN.md §2):
 
@@ -31,9 +33,9 @@ Like the paper's map, iterations run on the cheap analytic estimator.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
-from repro_torch.models.config import (ModelConfig, ShapeSpec,
+from repro_torch.models.config import (SHAPES, ModelConfig, ShapeSpec,
                                        cell_supported)
 from repro_torch.roofline.analysis import (HBM_BW, HBM_PER_CHIP, ICI_BW,
                                            PEAK_FLOPS)
@@ -253,3 +255,14 @@ def plan(cfg: ModelConfig, shape: ShapeSpec, *, n_devices: int = 1,
     log.append(MapEntry(it + 1, est, "-", "plan accepted"))
     return MeshPlan(cfg.name, shape.name, knobs, est, log,
                     fits=est.total_bytes <= hbm_budget)
+
+
+def plan_all(archs, shapes=None, **kw) -> Dict[str, MeshPlan]:
+    """{"<arch>/<shape>": plan} over ``archs`` x ``shapes`` (names of
+    ``SHAPES``, all of them by default); ``kw`` go to ``plan``."""
+    from repro_torch.configs import get_config
+    out = {}
+    for a in archs:
+        for s in (shapes or SHAPES):
+            out[f"{a}/{s}"] = plan(get_config(a), SHAPES[s], **kw)
+    return out

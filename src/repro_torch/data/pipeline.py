@@ -20,6 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import _device
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
@@ -106,3 +108,19 @@ def to_device(batch: Dict[str, np.ndarray],
               device) -> Dict[str, torch.Tensor]:
     """The batch's arrays as tensors on ``device``."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def device_put_batch(batch: Dict[str, np.ndarray], shardings=None,
+                     device=None):
+    """The batch on the device. Without ``shardings``: plain tensors on
+    ``device`` (the card by default). With them ({key: NamedSharding},
+    ``sharding.rules.input_shardings``): DTensors on each sharding's mesh,
+    of which every rank passes the **global** batch (``batch_at(step)``
+    with ``host_count=1``, as the reference's single controller builds
+    it) and keeps its block."""
+    if shardings is None:
+        return to_device(batch, _device.resolve(device))
+    from repro_torch.sharding.rules import distribute, mesh_device
+    return {k: distribute(torch.from_numpy(v).to(
+        mesh_device(shardings[k].mesh)), shardings[k])
+        for k, v in batch.items()}

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, attention_ref
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import shard_hint
 from repro_torch.models.layers import Linear, Norm, apply_mrope, \
     apply_norm, apply_rope, cdt, linear
 
@@ -229,9 +230,9 @@ def attn_block(p: AttnMixer, x, cfg: ModelConfig, kind: str, *,
     scale = hd ** -0.5
 
     hx = apply_norm(p.norm, x, cfg)
-    q = linear(p.wq, hx, cfg).reshape(b, s, h, hd)
-    k = linear(p.wk, hx, cfg).reshape(b, s, hkv, hd)
-    v = linear(p.wv, hx, cfg).reshape(b, s, hkv, hd)
+    q = shard_hint(linear(p.wq, hx, cfg).reshape(b, s, h, hd), "heads")
+    k = shard_hint(linear(p.wk, hx, cfg).reshape(b, s, hkv, hd), "heads")
+    v = shard_hint(linear(p.wv, hx, cfg).reshape(b, s, hkv, hd), "heads")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if cfg.mrope:

@@ -50,6 +50,7 @@ from repro_torch.models.layers import MLP, Embed, Linear, Norm, apply_mlp, \
     apply_norm, cdt, cross_entropy, embed_tokens, linear, unembed
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.schema import ATTN_KINDS, layer_groups
+from repro_torch.sharding.ctx import shard_hint
 
 _MIXERS = {"rglru": rec.RGLRUMixer, "mlstm": rec.MLSTMMixer,
            "slstm": rec.SLSTMMixer}
@@ -172,13 +173,13 @@ def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
                                 cache_pos=cache_pos)
         if mode == "prefill":
             c_new = _prefill_attn_cache(cfg, block.kind, c_new, prefill_pad)
-    x = x + out
+    x = shard_hint(x + out, "acts")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if isinstance(block.mlp, MoE):
         mo, aux = apply_moe(block.mlp, x, cfg)
-        x = x + mo
+        x = shard_hint(x + mo, "acts")
     elif block.mlp is not None:
-        x = x + apply_mlp(block.mlp, x, cfg)
+        x = shard_hint(x + apply_mlp(block.mlp, x, cfg), "acts")
     return x, c_new, aux
 
 
@@ -288,6 +289,7 @@ def forward(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
                          "frame embeddings (embeds=), not token ids")
     else:
         x = embed_tokens(model.embed, tokens, cfg)
+    x = shard_hint(x, "acts")
     if positions is None:
         base = torch.arange(x.shape[1], device=x.device)[None, :]
         if mode == "decode":
@@ -325,7 +327,8 @@ def chunked_lm_loss(model: LM, cfg: ModelConfig, x, labels,
     ls = labels.reshape(b, n, ck)
 
     def body(xc, lc):
-        return cross_entropy(unembed(model, xc, cfg), lc)
+        return cross_entropy(shard_hint(unembed(model, xc, cfg), "logits"),
+                             lc)
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
@@ -334,7 +337,7 @@ def chunked_lm_loss(model: LM, cfg: ModelConfig, x, labels,
 
 
 def lm_logits(model: LM, cfg: ModelConfig, x):
-    return unembed(model, x, cfg)
+    return shard_hint(unembed(model, x, cfg), "logits")
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch):

@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Norm, apply_norm, cdt, param
+from repro_torch.sharding.ctx import batch_mean, shard_hint
 
 
 class Router(nn.Module):
@@ -108,12 +109,13 @@ def apply_moe(p: MoE, x, cfg: ModelConfig):
     rows = torch.arange(b, device=x.device)[:, None].expand_as(slot)
     buf = torch.zeros((b, e * cap + 1, d), dtype=dt, device=x.device)
     buf = buf.index_put((rows, slot), src)
-    buf = buf[:, :e * cap].reshape(b, e, cap, d)
+    buf = shard_hint(buf[:, :e * cap].reshape(b, e, cap, d), "expert_buf4")
 
     # the expert FFN (SwiGLU)
     gu = torch.einsum("becd,edf->becf", buf, p.wi.to(dt))
     g, u = gu.chunk(2, dim=-1)
-    out_buf = torch.einsum("becf,efd->becd", F.silu(g) * u, p.wo.to(dt))
+    out_buf = shard_hint(torch.einsum("becf,efd->becd", F.silu(g) * u,
+                                      p.wo.to(dt)), "expert_buf4")
 
     # combine: each pair's row (the sink a fresh zero row), gate-weighted,
     # summed over the k choices
@@ -124,7 +126,9 @@ def apply_moe(p: MoE, x, cfg: ModelConfig):
     out = (gathered * wts[..., None]).reshape(b, s, k, d).sum(dim=2)
 
     # load-balancing aux from the first choice
-    frac_tokens = F.one_hot(experts[..., 0], e).float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
+    # (over the global batch when the sharded step splits its rows)
+    frac_tokens = batch_mean(
+        F.one_hot(experts[..., 0], e).float().mean(dim=(0, 1)))
+    frac_probs = batch_mean(probs.mean(dim=(0, 1)))
     aux = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_coef
     return out, aux

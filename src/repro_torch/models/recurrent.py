@@ -30,6 +30,7 @@ from torch import nn
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.models.attention import remat_chunk
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import shard_hint
 from repro_torch.models.layers import Linear, Norm, apply_norm, cdt, \
     linear, param, rms_head_norm
 
@@ -362,6 +363,7 @@ def rglru_block(p: RGLRUMixer, x, cfg: ModelConfig,
                                 h0.contiguous())
     else:
         hs, h_f = linear_scan(a, gx, h0)
+    hs = shard_hint(hs, "acts_ffn")
     # jax.nn.gelu defaults to the tanh approximation
     out = hs.to(cdt(cfg)) * F.gelu(xg, approximate="tanh")
     out = linear(p.wo, out, cfg)

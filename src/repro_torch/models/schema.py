@@ -2,7 +2,12 @@
 
 ``schema(cfg)`` returns the reference's nested dict of :class:`ParamSpec`
 leaves, in the reference's layout: each repeated layer group is stored
-*stacked*, with a leading ``repeats`` dim. From it come
+*stacked*, with a leading ``repeats`` dim (axis name None). From it come
+  * ``param_axes``    : the tree of logical axis names the sharding rules
+                        read (``sharding.rules``), the reference's names;
+                        ``named_specs`` keys the specs by the port's
+                        parameter names, one module per layer, so a
+                        layer's leaf drops the stacked leaf's leading None
   * ``count_params``  : the analytic parameter count
   * ``init_numpy``    : a parameter tree of numpy arrays made from a seed,
                         the weights the tests, the golden file's generator
@@ -38,21 +43,27 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"              # normal | zeros | ones | lambda_lru
     scale: float = 1.0
+    axes: Tuple[object, ...] = ()     # logical axis name (str) or None per dim
 
 
-def _dense(d_in: int, d_out: int, *, bias: bool = False,
+def _spec(shape, axes, init: str = "normal",
+          scale: float = 1.0) -> ParamSpec:
+    return ParamSpec(tuple(shape), init, scale, tuple(axes))
+
+
+def _dense(d_in: int, d_out: int, ax_in, ax_out, *, bias: bool = False,
            scale: float | None = None) -> Dict[str, ParamSpec]:
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    out = {"w": ParamSpec((d_in, d_out), "normal", scale)}
+    out = {"w": _spec((d_in, d_out), (ax_in, ax_out), "normal", scale)}
     if bias:
-        out["b"] = ParamSpec((d_out,), "zeros")
+        out["b"] = _spec((d_out,), (ax_out,), "zeros")
     return out
 
 
 def _norm(d: int, kind: str) -> Dict[str, ParamSpec]:
-    out = {"scale": ParamSpec((d,), "ones")}
+    out = {"scale": _spec((d,), ("embed",), "ones")}
     if kind == "layernorm":
-        out["bias"] = ParamSpec((d,), "zeros")
+        out["bias"] = _spec((d,), ("embed",), "zeros")
     return out
 
 
@@ -60,29 +71,33 @@ def _attn_schema(cfg: ModelConfig) -> Dict:
     d, hd = cfg.d_model, cfg.hd
     q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
     return {"norm": _norm(d, cfg.norm),
-            "wq": _dense(d, q_dim, bias=cfg.attn_bias),
-            "wk": _dense(d, kv_dim, bias=cfg.attn_bias),
-            "wv": _dense(d, kv_dim, bias=cfg.attn_bias),
-            "wo": _dense(q_dim, d, bias=cfg.norm == "layernorm")}
+            "wq": _dense(d, q_dim, "embed", "qkv", bias=cfg.attn_bias),
+            "wk": _dense(d, kv_dim, "embed", "kv", bias=cfg.attn_bias),
+            "wv": _dense(d, kv_dim, "embed", "kv", bias=cfg.attn_bias),
+            "wo": _dense(q_dim, d, "qkv", "embed",
+                         bias=cfg.norm == "layernorm")}
 
 
 def _mlp_schema(cfg: ModelConfig) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.mlp == "swiglu":
         return {"norm": _norm(d, cfg.norm),
-                "wi": _dense(d, 2 * ff),                      # fused gate|up
-                "wo": _dense(ff, d)}
+                "wi": _dense(d, 2 * ff, "embed", "ffn"),      # fused gate|up
+                "wo": _dense(ff, d, "ffn", "embed")}
     return {"norm": _norm(d, cfg.norm),                       # gelu (HuBERT)
-            "wi": _dense(d, ff, bias=True),
-            "wo": _dense(ff, d, bias=True)}
+            "wi": _dense(d, ff, "embed", "ffn", bias=True),
+            "wo": _dense(ff, d, "ffn", "embed", bias=True)}
 
 
 def _moe_schema(cfg: ModelConfig) -> Dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {"norm": _norm(d, cfg.norm),
-            "router": {"w": ParamSpec((d, e), "normal", 1.0 / math.sqrt(d))},
-            "wi": ParamSpec((e, d, 2 * ff), "normal", 1.0 / math.sqrt(d)),
-            "wo": ParamSpec((e, ff, d), "normal", 1.0 / math.sqrt(ff))}
+            "router": {"w": _spec((d, e), ("embed", None), "normal",
+                                  1.0 / math.sqrt(d))},
+            "wi": _spec((e, d, 2 * ff), ("experts", "embed", "ffn"),
+                        "normal", 1.0 / math.sqrt(d)),
+            "wo": _spec((e, ff, d), ("experts", "ffn", "embed"),
+                        "normal", 1.0 / math.sqrt(ff))}
 
 
 def _rglru_schema(cfg: ModelConfig) -> Dict:
@@ -90,18 +105,19 @@ def _rglru_schema(cfg: ModelConfig) -> Dict:
     d, dr = cfg.d_model, cfg.lru_d
     return {
         "norm": _norm(d, cfg.norm),
-        "wx": _dense(d, dr),                                  # recurrent in
-        "wg": _dense(d, dr),                                  # gate branch
-        "conv": {"w": ParamSpec((cfg.conv_width, dr), "normal", 0.1),
-                 "b": ParamSpec((dr,), "zeros")},
+        "wx": _dense(d, dr, "embed", "ffn"),                  # recurrent in
+        "wg": _dense(d, dr, "embed", "ffn"),                  # gate branch
+        "conv": {"w": _spec((cfg.conv_width, dr), (None, "ffn"), "normal",
+                            0.1),
+                 "b": _spec((dr,), ("ffn",), "zeros")},
         "lru": {
-            "lam": ParamSpec((dr,), "lambda_lru"),            # a = σ(Λ)^(c·r)
-            "wa": _dense(dr, dr, scale=1.0 / math.sqrt(dr)),
-            "ba": ParamSpec((dr,), "zeros"),
-            "wi": _dense(dr, dr, scale=1.0 / math.sqrt(dr)),
-            "bi": ParamSpec((dr,), "zeros"),
+            "lam": _spec((dr,), ("ffn",), "lambda_lru"),      # a = σ(Λ)^(c·r)
+            "wa": _dense(dr, dr, "ffn", None, scale=1.0 / math.sqrt(dr)),
+            "ba": _spec((dr,), (None,), "zeros"),
+            "wi": _dense(dr, dr, "ffn", None, scale=1.0 / math.sqrt(dr)),
+            "bi": _spec((dr,), (None,), "zeros"),
         },
-        "wo": _dense(dr, d),
+        "wo": _dense(dr, d, "ffn", "embed"),
     }
 
 
@@ -112,15 +128,16 @@ def _mlstm_schema(cfg: ModelConfig) -> Dict:
     h = cfg.n_heads
     return {
         "norm": _norm(d, cfg.norm),
-        "wup": _dense(d, 2 * de),                             # fused x|gate
-        "conv": {"w": ParamSpec((cfg.conv_width, de), "normal", 0.1),
-                 "b": ParamSpec((de,), "zeros")},
-        "wq": _dense(de, de),
-        "wk": _dense(de, de),
-        "wv": _dense(de, de),
-        "wif": _dense(de, 2 * h),                             # i/f pre-acts
-        "onorm": {"scale": ParamSpec((de,), "ones")},
-        "wdown": _dense(de, d),
+        "wup": _dense(d, 2 * de, "embed", "ffn"),             # fused x|gate
+        "conv": {"w": _spec((cfg.conv_width, de), (None, "ffn"), "normal",
+                            0.1),
+                 "b": _spec((de,), ("ffn",), "zeros")},
+        "wq": _dense(de, de, "ffn", None),
+        "wk": _dense(de, de, "ffn", None),
+        "wv": _dense(de, de, "ffn", None),
+        "wif": _dense(de, 2 * h, "ffn", None),                # i/f pre-acts
+        "onorm": {"scale": _spec((de,), ("ffn",), "ones")},
+        "wdown": _dense(de, d, "ffn", "embed"),
     }
 
 
@@ -130,10 +147,11 @@ def _slstm_schema(cfg: ModelConfig) -> Dict:
     hd = d // h
     return {
         "norm": _norm(d, cfg.norm),
-        "wg": _dense(d, 4 * d),                               # i|f|z|o of x_t
-        "rg": ParamSpec((h, hd, 4 * hd), "normal", 1.0 / math.sqrt(hd)),
-        "bg": ParamSpec((4 * d,), "zeros"),
-        "wo": _dense(d, d),
+        "wg": _dense(d, 4 * d, "embed", "ffn"),               # i|f|z|o of x_t
+        "rg": _spec((h, hd, 4 * hd), (None, None, None), "normal",
+                    1.0 / math.sqrt(hd)),                     # per head
+        "bg": _spec((4 * d,), ("ffn",), "zeros"),
+        "wo": _dense(d, d, "embed", "qkv"),
     }
 
 
@@ -163,9 +181,10 @@ def layer_groups(cfg: ModelConfig):
 
 
 def _stack(tree, n: int):
-    """Prepend a stacked layer dim to every ParamSpec."""
+    """Prepend a stacked layer dim (axis name None) to every ParamSpec."""
     if isinstance(tree, ParamSpec):
-        return ParamSpec((n, *tree.shape), tree.init, tree.scale)
+        return _spec((n, *tree.shape), (None, *tree.axes), tree.init,
+                     tree.scale)
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
@@ -173,9 +192,10 @@ def schema(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     s: Dict = {}
     if cfg.frontend:
-        s["frontend_proj"] = _dense(cfg.d_frontend, d)
+        s["frontend_proj"] = _dense(cfg.d_frontend, d, None, "embed")
     if cfg.frontend != "audio_frames":          # HuBERT: no token embedding
-        s["embed"] = {"w": ParamSpec((cfg.vocab_size, d), "normal", 0.02)}
+        s["embed"] = {"w": _spec((cfg.vocab_size, d), ("vocab", "embed"),
+                                 "normal", 0.02)}
     groups = {}
     for gi, (unit, reps) in enumerate(layer_groups(cfg)):
         g = {str(i): _block_schema(cfg, kind) for i, kind in enumerate(unit)}
@@ -183,7 +203,7 @@ def schema(cfg: ModelConfig) -> Dict:
     s["groups"] = groups
     s["final_norm"] = _norm(d, cfg.norm)
     if not cfg.tie_embeddings:
-        s["lm_head"] = _dense(d, cfg.vocab_size)
+        s["lm_head"] = _dense(d, cfg.vocab_size, "embed", "vocab")
     return s
 
 
@@ -195,6 +215,40 @@ def leaves(tree, prefix: str = ""):
         return
     for k, v in tree.items():
         yield from leaves(v, f"{prefix}/{k}" if prefix else k)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    return {k: _tree_map(fn, v) for k, v in tree.items()}
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The schema's tree of logical axes (the reference's ``param_axes``)."""
+    return _tree_map(lambda s: s.axes, schema(cfg))
+
+
+def named_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """{the port's parameter name: its ParamSpec}: a top-level leaf's
+    spec as the schema has it, a layer's the stacked leaf's spec without
+    its leading repeats dim (``layers.<i>.mixer.wq.w`` of layer i)."""
+    sch = schema(cfg)
+    out = {}
+    for path, spec in leaves({k: v for k, v in sch.items()
+                              if k != "groups"}):
+        out[path.replace("/", ".")] = spec
+    layer = 0
+    for gi, (unit, reps) in enumerate(layer_groups(cfg)):
+        group = sch["groups"][str(gi)]
+        for rep in range(reps):
+            for idx in range(len(unit)):
+                for path, spec in leaves(group[str(idx)]):
+                    name = f"layers.{layer + rep * len(unit) + idx}." \
+                        + path.replace("/", ".")
+                    out[name] = _spec(spec.shape[1:], spec.axes[1:],
+                                      spec.init, spec.scale)
+        layer += reps * len(unit)
+    return out
 
 
 def count_params(cfg: ModelConfig) -> int:

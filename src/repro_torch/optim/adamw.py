@@ -75,15 +75,20 @@ def bias_corrections(hp: AdamWConfig, step: torch.Tensor):
 @torch.no_grad()
 def update(grads: Dict[str, torch.Tensor], state: AdamWState,
            params: Dict[str, torch.Tensor], hp: AdamWConfig,
-           ndims: Optional[Dict[str, int]] = None) -> dict:
+           ndims: Optional[Dict[str, int]] = None,
+           gnorm: Optional[torch.Tensor] = None) -> dict:
     """One AdamW step in place on ``params`` and ``state``. ``ndims``
     ({name: ndim}) is what the decay rule reads, each tensor's own ndim
-    where not given (see ``models.model.decay_ndims``). Returns the
-    metrics {"grad_norm", "lr"} as 0-dim f32 tensors."""
+    where not given (see ``models.model.decay_ndims``). ``gnorm`` is the
+    clip's global norm, that of ``grads`` where not given: a sharded step
+    passes each rank's shards of the parameters, moments and gradients,
+    and the norm of the whole gradients. Returns the metrics
+    {"grad_norm", "lr"} as 0-dim f32 tensors."""
     names = list(params)
     state.step.add_(1)
     step = state.step
-    gnorm = global_norm(grads[n] for n in names)
+    if gnorm is None:
+        gnorm = global_norm(grads[n] for n in names)
     lr = schedule(hp, step)
     b1c, b2c = bias_corrections(hp, step)
     g = [grads[n].float() for n in names]
