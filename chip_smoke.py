@@ -208,7 +208,21 @@ Phases, each fatal on any mismatch:
      rotated) beyond on the vision prefill; 4 of its 80 layers in bf16, a
      vision prefill of 2 x 4,096 patches and 8 decode steps through
      flash_attention, timed, and Engine.generate of four prompts (2,048
-     to 45 tokens), each against the plain path.
+     to 45 tokens), each against the plain path;
+  14. the dry run and validate (dryrun_path): started with the script, in
+     a process of its own that sees no card, the dry-run CLI
+     (python -m repro_torch.launch.dryrun) traces smollm-360m x train_4k
+     and mixtral-8x7b x prefill_32k with the flash kernel (its meta
+     route) on the meta device on a 16 x 16 stand-in world of 256 ranks,
+     each record printed; then MeshPlanner.validate of two one-card
+     plans on the 1 x 1 mesh: (b) smollm-360m's training step at phase
+     11's (8, 2048) and (c) recurrentgemma-2b's prefill at the LM main
+     path's 4 x 3072 with the kernels on. Phases 11 and the LM main path
+     each run one more real step of those cells on the card under the
+     port's StepCost (the kernels' noted work counted); the dry run's dot
+     FLOPs must equal the card's, and its predicted per-rank bytes lie
+     within DRYRUN_MEMORY_TOL of torch.cuda.max_memory_allocated; the
+     roofline's step time is printed beside the measured one.
 
 Matrix products run in full precision wherever the port is compared with
 a reference (no TF32, no reduced-precision bf16 reductions).
@@ -224,6 +238,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import resource
 import subprocess
 import sys
@@ -276,6 +291,7 @@ from repro_torch.models.steps import make_train_step  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.roofline.analysis import (PEAK_FLOPS,  # noqa: E402
                                            model_flops_estimate)
+from repro_torch.roofline.counter import StepCost  # noqa: E402
 from repro_torch.sharding import set_rules  # noqa: E402
 from repro_torch.sharding.rules import is_whole, make_rules  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
@@ -905,14 +921,6 @@ def _flash_inputs(case, dev, seed=0):
             _normal((bhkv, skv, hd), seed + 2, dev, dtype))
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the mask keeps: the work attention needs."""
-    q = np.arange(sq, dtype=np.int64)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros_like(q)
-    hi = np.minimum(q, skv - 1) if causal else np.full_like(q, skv - 1)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def _sdpa(q, k, v, causal, window, bsz):
     """One PyTorch call for the same attention, as a yardstick only: the
     port never calls it. (BH, S, hd) -> (B, H, S, hd) views; an explicit
@@ -1031,7 +1039,7 @@ def _flash_timing(case, dev, bsz: int) -> dict:
     or the bytes of q, k, v and o at the memory rate, the larger."""
     bh, bhkv, sq, skv, hd, causal, window, dtype = case
     q, k, v = _flash_inputs(case, dev, seed=5)
-    pairs = visible_pairs(sq, skv, causal, window) * bh
+    pairs = fa.visible_pairs(sq, skv, causal, window) * bh
     flops = 4 * hd * pairs                       # QK and PV, 2 per MAC
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     ops_ms = flops / BF16_OPS_PER_S * 1e3
@@ -1451,10 +1459,13 @@ def lm_main_path(dev) -> tuple:
         check(not f["must_fail"] or f["max"] > BF16_TOL,
               f"planted fault '{name}' passes the {BF16_TOL} limit "
               f"(max |err| {f['max']})")
-    lm_profile(model, cfg, prompts[:LM_SLOTS])
-    del model, calls_p
+    profile = lm_profile(model, cfg, prompts[:LM_SLOTS])
+    del engine, plain, out, out_p, calls_p
+    leg = prefill_leg(model, cfg, dev)
+    leg["measured_ms"] = profile["prefill"]["wall_ms"]
+    del model
     torch.cuda.empty_cache()
-    return counts
+    return counts, leg
 
 
 # the kernels' symbols, as the profiler names them: flash_attention's
@@ -1521,6 +1532,7 @@ def lm_profile(model, cfg, prompts, steps: int = 5,
                 "top_device_ms": {k: v / per
                                   for k, v in _top(kernels, 8).items()}}
     emit({key: {"rows": len(prompts), "prompt_len": plen, **out}})
+    return out
 
 
 # -- phase 4: the simulator on the card ---------------------------------------
@@ -3180,6 +3192,8 @@ def lm_train_main(dev) -> dict:
                                     counts[:2])),
         "determinism_probe": probe}
     res["profile"] = train_profile(trainer, model, out["params"], opt)
+    res["step_cost"] = train_leg(trainer, model, out["params"], opt)
+    res["step_cost"]["measured_ms"] = res["ms_per_step"]
     emit({"lm_train_main": res})
     check(counts == (0, 0, 0, 0), f"training launched kernels: {counts}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -4554,6 +4568,175 @@ def lm_families_path(dev) -> dict:
             "wall_s": time.perf_counter() - t0, "wall_s_by_run": walls}
 
 
+# -- phase 14: the dry run and validate ----------------------------------------
+
+# (a) the dry-run CLI on two cells of the 16 x 16 stand-in world; (b) and
+# (c) validate of the one-card plans of a training step (phase 11's SmolLM
+# batch) and a prefill (the LM main path's 4 x 3072, the kernels on), each
+# held against one real step on the card under StepCost
+DRYRUN_OUT = ROOT / "experiments" / "dryrun"      # the CLI's default
+DRYRUN_CLI = (("--arch", "smollm-360m", "--shape", "train_4k"),
+              ("--arch", "mixtral-8x7b", "--shape", "prefill_32k",
+               "--flash-kernel"))
+DRYRUN_VALIDATE = {
+    "train": (TRAIN_ARCH, ("launch", TRAIN_SEQ, TRAIN_BATCH, "train"), False),
+    "prefill": (LM_ARCH, ("prefill", LM_LENGTHS[0], LM_SLOTS, "prefill"),
+                True)}
+# predicted per-rank bytes against the card's max_memory_allocated
+DRYRUN_MEMORY_TOL = 0.10
+# the dry runs' process: a world opens once per process, and it sees no
+# card (nothing of it may touch the card this script measures)
+DRYRUN_CODE = """
+import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.configs import get_config
+from repro_torch.core import meshplanner as mp
+from repro_torch.launch import dryrun
+from repro_torch.models.config import ShapeSpec
+spec = json.loads(sys.argv[1])
+out = {"cli": []}
+for argv in spec["cli"]:
+    out["cli"] += dryrun.main(argv)
+for name, (arch, shape, flash) in spec["validate"].items():
+    shape = ShapeSpec(*shape)
+    plan = mp.plan(get_config(arch), shape)
+    plan.knobs.use_flash_kernel = flash
+    out[name] = mp.validate(plan, shape=shape, host=True)
+out["seconds"] = time.perf_counter() - t0
+print("DRYRUN " + json.dumps(out))
+"""
+
+
+class DryRun:
+    """Phase 14's dry runs, started at the script's start in a process of
+    their own; ``result`` waits for them."""
+
+    def __init__(self):
+        spec = {"cli": [list(a) + ["--out", str(DRYRUN_OUT)]
+                        for a in DRYRUN_CLI],
+                "validate": DRYRUN_VALIDATE}
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CODE, json.dumps(spec)],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                 "CUDA_VISIBLE_DEVICES": ""})
+
+    def result(self) -> tuple:
+        """(the dry runs' records and seconds, the process's output)."""
+        rc = self.proc.wait(timeout=600)
+        self.log.seek(0)
+        text = self.log.read()
+        self.log.close()
+        check(rc == 0, f"the dry runs failed (exit {rc}):\n{text[-4000:]}")
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("DRYRUN "))
+        return json.loads(line[len("DRYRUN "):]), text
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def counted_leg(fn, *held) -> dict:
+    """One real step on the card under StepCost: its counted dot FLOPs
+    (the kernels' noted work included), bytes, arguments and live peak,
+    and the allocator's peak over it; the step's wall with the counter
+    on."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with StepCost() as cost:
+        cost.hold(*held)
+        fn()
+        torch.cuda.synchronize()
+    return {"flops": cost.flops, "bytes": cost.bytes,
+            "arg_bytes": cost.arg_bytes, "counted_peak_bytes": cost.peak,
+            "kernels": cost.kernels, "allocated_before": before,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_reserved": torch.cuda.max_memory_reserved(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def train_leg(trainer, model, params, opt) -> dict:
+    """Leg (b): one more step of phase 11's launcher (the sharded step
+    on the (1, 1) mesh) on its next batch, its last gradients freed
+    first."""
+    batch = trainer.put_batch(trainer.tc.steps + 8)
+    model.zero_grad(set_to_none=True)
+
+    def step():
+        with set_rules(trainer.rules):
+            trainer.step(model, params, opt, batch)
+    return counted_leg(step, model, params, opt, batch)
+
+
+def prefill_leg(model, cfg, dev) -> dict:
+    """Leg (c): the prefill step (``steps.make_prefill_step``) of the LM
+    main path's model on LM_SLOTS x LM_LENGTHS[0] seeded tokens, the
+    kernels on."""
+    g = np.random.default_rng([LM_SEED, 14])
+    tokens = torch.from_numpy(g.integers(
+        0, cfg.vocab_size, (LM_SLOTS, LM_LENGTHS[0])).astype(np.int32)).to(dev)
+    prefill = steps_mod.make_prefill_step(cfg)
+
+    def step():
+        with torch.no_grad():
+            prefill(model, {"tokens": tokens})
+    return counted_leg(step, model, tokens)
+
+
+def dryrun_path(dry: DryRun, legs: dict) -> dict:
+    """Phase 14 (module doc): the dry runs' records, and each card leg
+    against its validate record."""
+    t0 = time.perf_counter()
+    recs, text = dry.result()
+    wait_s = time.perf_counter() - t0
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    (DRYRUN_OUT / "dryrun.log").write_text(text)
+    for rec in recs["cli"]:
+        emit({"dryrun_record": rec})
+        check(rec["supported"] and rec["n_devices"] == 256
+              and rec["flops"] > 0 and rec["total_dev_bytes"] > 0
+              and all(math.isfinite(rec[k]) for k in (
+                  "compute_s", "memory_s", "collective_s")),
+              f"dry run of {rec['arch']} x {rec['shape']}: {rec}")
+    out = {"process_s": recs["seconds"], "wait_s": wait_s, "legs": {}}
+    for name, leg in legs.items():
+        rec = recs[name]
+        peak = leg["max_memory_allocated"]
+        err = abs(rec["total_dev_bytes"] - peak) / peak
+        step_ms = 1e3 * max(rec["compute_s"], rec["memory_s"],
+                            rec["collective_s"])
+        out["legs"][name] = {
+            "arch": rec["arch"], "mesh": rec["mesh"],
+            "dry_flops": rec["flops"], "card_flops": leg["flops"],
+            "dry_bytes_hbm": rec["bytes_hbm"], "card_bytes": leg["bytes"],
+            "dry_total_dev_bytes": rec["total_dev_bytes"],
+            "dry_arg_bytes": rec["arg_bytes"],
+            "max_memory_allocated": peak,
+            "max_memory_reserved": leg["max_memory_reserved"],
+            "card_counted_peak_bytes": leg["counted_peak_bytes"],
+            "card_arg_bytes": leg["arg_bytes"],
+            "allocated_before": leg["allocated_before"],
+            "memory_rel_err": err, "kernels": leg["kernels"],
+            "roofline_ms": step_ms, "measured_ms": leg["measured_ms"],
+            "measured_over_roofline": leg["measured_ms"] / step_ms,
+            "bound": rec["bound"], "counted_step_wall_s": leg["wall_s"],
+            "trace_s": rec["lower_s"]}
+        check(rec["flops"] == leg["flops"],
+              f"dry run {name}: {rec['flops']} dot FLOPs, the card's step "
+              f"{leg['flops']}")
+        check(err <= DRYRUN_MEMORY_TOL,
+              f"dry run {name}: {rec['total_dev_bytes']} bytes predicted, "
+              f"max_memory_allocated {peak} ({err:.3f} off)")
+    out["wall_s"] = time.perf_counter() - t0
+    emit({"dryrun_path": out})
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
             or not all(p.is_file() for p in (
@@ -4581,6 +4764,15 @@ def main() -> int:
                      "capability": list(torch.cuda.get_device_capability(0))}})
 
     laps = [("start", time.perf_counter())]     # each phase's wall, s
+    dry = DryRun()                        # phase 14's dry runs, meanwhile
+    try:
+        return _phases(dev, laps, dry)
+    finally:
+        dry.stop()
+
+
+def _phases(dev, laps, dry) -> int:
+    """Phases 2-14 (module doc); the last line on success."""
     t0 = time.perf_counter()
     _build.build_all(["pe_simd", "flash_attention", "rglru_scan"])
     build_s = time.perf_counter() - t0
@@ -4683,7 +4875,8 @@ def main() -> int:
     laps.append(("pe_execute_shapes", time.perf_counter()))
 
     lm_golden(dev)
-    flash_launches, rglru_launches, _, ring_launches = lm_main_path(dev)
+    (flash_launches, rglru_launches, _, ring_launches), prefill_cost = \
+        lm_main_path(dev)
     check(ring_launches == rglru_launches,
           f"rglru_scan: {ring_launches} of {rglru_launches} launches of the "
           "LM path on the ring route")
@@ -4700,6 +4893,9 @@ def main() -> int:
     families = lm_families_path(dev)
     emit({"lm_families_path": families})
     laps.append(("lm_families", time.perf_counter()))
+    dryrun_path(dry, {"train": train["main"]["step_cost"],
+                      "prefill": prefill_cost})
+    laps.append(("dryrun", time.perf_counter()))
     emit({"phase_walls": {name: t - laps[i][1]
                           for i, (name, t) in enumerate(laps[1:])}})
 

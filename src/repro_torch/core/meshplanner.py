@@ -7,8 +7,8 @@ against the H100's constants (``roofline.analysis``); ``estimate`` and
 the reference's at 1, 8 and 256 devices. ``Knobs.apply`` sets the port's
 ``use_kernels`` from ``use_flash_kernel``. ``plan_all`` plans every
 architecture x shape cell (the training launcher plans for its mesh,
-``launch.train``). The compile-backed ``validate`` is not ported: it
-lowers the cell under the sharding rules (ROADMAP.md, queue item 12).
+``launch.train``). ``validate`` dry-runs a plan (``launch.dryrun``): the
+counted roofline record of its cell under the plan's knobs.
 
 The structural mapping (DESIGN.md §2):
 
@@ -255,6 +255,22 @@ def plan(cfg: ModelConfig, shape: ShapeSpec, *, n_devices: int = 1,
     log.append(MapEntry(it + 1, est, "-", "plan accepted"))
     return MeshPlan(cfg.name, shape.name, knobs, est, log,
                     fits=est.total_bytes <= hbm_budget)
+
+
+def validate(plan_: MeshPlan, *, shape: Optional[ShapeSpec] = None,
+             multi_pod: bool = False, host: bool = False, out_dir=None):
+    """'Synthesis': trace the planned cell on the meta device and return
+    its counted roofline record (``dryrun.run_cell`` with the plan's
+    knobs). ``shape`` stands for the plan's cell where that is not one
+    of ``SHAPES``; ``host`` takes the one-device mesh, the one a plan for
+    one card runs on. Needs an open world of the mesh's size
+    (``dryrun.open_world``)."""
+    from repro_torch.launch.dryrun import run_cell
+    k = plan_.knobs
+    return run_cell(plan_.arch, shape or plan_.shape, multi_pod=multi_pod,
+                    host=host, remat=k.remat, microbatches=k.microbatches,
+                    fsdp=k.fsdp, seq_shard=k.seq_shard,
+                    use_flash_kernel=k.use_flash_kernel, out_dir=out_dir)
 
 
 def plan_all(archs, shapes=None, **kw) -> Dict[str, MeshPlan]:

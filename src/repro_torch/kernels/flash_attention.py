@@ -9,7 +9,12 @@ runs the plain version ``ref.attention_ref``. The kernel has two routes
 (``route``): bf16 runs on the tensor cores (``flash_mma_kernel``), f32 on
 the CUDA cores (``flash_simt_kernel``). ``LAUNCHES`` counts kernel
 launches and ``ROUTE_LAUNCHES`` splits them by route, so a run can show
-that it went through the kernel and which one.
+that it went through the kernel and which one. On ``meta`` tensors (the
+dry run, ``launch.dryrun``) it launches nothing and returns the output's
+shape and dtype. On meta and CUDA tensors it notes its work to any
+active ``roofline.counter.StepCost``, which cannot see the launch: 4 *
+hd FLOPs per visible (q, k) pair of each head (``visible_pairs``), and
+q, k, v read and the output written.
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.roofline import counter
 
 LAUNCHES = 0
 MAX_HD = 256
@@ -76,6 +83,14 @@ def tensor_core_design(hd: int) -> dict:
     return dict(zip(_DESIGN_KEYS, out))
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask keeps, per head: the work attention needs."""
+    q = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros_like(q)
+    hi = np.minimum(q, skv - 1) if causal else np.full_like(q, skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPES or t.dtype != q.dtype:
@@ -111,11 +126,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     path = route(q.dtype, hd)
     bhkv, skv, _ = k.shape
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        _note(q, k, causal, window)
+        return out
     with torch.cuda.device(q.device):
         rc = _lib().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -127,4 +145,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                            + _lib().flash_error_string(rc).decode())
     LAUNCHES += 1
     ROUTE_LAUNCHES[path] += 1
+    _note(q, k, causal, window)
     return out
+
+
+def _note(q, k, causal: bool, window: int) -> None:
+    if counter.active():
+        bh, sq, hd = q.shape
+        counter.note("flash_attention",
+                     4 * hd * bh * visible_pairs(sq, k.shape[1], causal,
+                                                 window),
+                     2 * counter.nbytes(q) + 2 * counter.nbytes(k))

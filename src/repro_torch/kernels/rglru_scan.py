@@ -9,7 +9,11 @@ and alignment (``scan_route``): "ring" (32 channels a block, S streamed
 through a ring of shared-memory stages by the Tensor Memory Accelerator)
 and "direct" (one thread per (batch, channel), loads straight from device
 memory; any D or base). ``LAUNCHES`` counts kernel launches and
-``ROUTE_LAUNCHES`` splits them by route.
+``ROUTE_LAUNCHES`` splits them by route. On ``meta`` tensors (the dry
+run, ``launch.dryrun``) it launches nothing and returns the outputs'
+shapes and dtypes. On meta and CUDA tensors it notes its bytes to any
+active ``roofline.counter.StepCost``, which cannot see the launch: a, b
+and h0 read, h and the final h written (no dot FLOPs).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.roofline import counter
 
 LAUNCHES = 0
 ROUTES = ("ring", "direct")
@@ -92,9 +97,17 @@ def rglru_scan(a, b, h0):
     _check(a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    if a.device.type == "meta":
+        _note(a, h0)
+        return torch.empty_like(a), torch.empty_like(h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     return _launch(scan_route(*a.shape, _aligned(a, b)), a, b, h0)
+
+
+def _note(a, h0) -> None:
+    counter.note("rglru_scan", 0, 3 * counter.nbytes(a)
+                 + 2 * counter.nbytes(h0))
 
 
 def _launch(path: str, a, b, h0):
@@ -115,4 +128,5 @@ def _launch(path: str, a, b, h0):
                            + _lib().rglru_error_string(rc).decode())
     LAUNCHES += 1
     ROUTE_LAUNCHES[path] += 1
+    _note(a, h0)
     return h, h_final

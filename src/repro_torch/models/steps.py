@@ -174,10 +174,13 @@ def bind(model, params) -> None:
 def gather_params(model, params) -> None:
     """Each of ``model``'s parameters in full from its shard in
     ``params``: nothing to do where the model's tensor is the shard's
-    storage, ``full_tensor`` (every rank takes part) elsewhere."""
+    storage, ``full_tensor`` (every rank takes part) elsewhere. Storages
+    compare by identity, not by data pointer: on the meta device (the dry
+    run) every pointer is 0."""
     for name, p in model.named_parameters():
         shard = params[name]
-        if shard.to_local().data_ptr() != p.data_ptr():
+        if shard.to_local().untyped_storage()._cdata \
+                != p.untyped_storage()._cdata:
             p.copy_(shard.full_tensor())
 
 

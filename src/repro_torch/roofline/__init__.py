@@ -1,2 +1,3 @@
-"""Roofline constants and model FLOPs (the part of the reference's
-``repro.roofline`` that MeshPlanner reads), for one NVIDIA H100."""
+"""Roofline constants for one NVIDIA H100, model FLOPs, the step-cost
+counter (``counter.StepCost``) and the roofline of a counted step
+(``analysis.analyze``)."""
