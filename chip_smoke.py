@@ -162,9 +162,11 @@ Phases, each fatal on any mismatch:
      phase 11's probe found the card's gradients irreproducible); its
      checkpoint restored on one device and, in a new world, onto a new
      (1, 1) mesh by the Trainer's elastic resume, both bit for bit; step
-     ms sharded and unsharded, peak memory against the plan, and the
-     gather and reduce spans of one more step, each timed to a
-     synchronize;
+     ms sharded and unsharded, peak memory against the plan, and one more
+     step through the sharded step's path (the model bound to its shards,
+     each layer unit's dp gather, the global norm over shards; the world
+     of one issues no collective), its per-unit gathers and global norm
+     counted and timed to a synchronize;
   12. MoE serving (lm_moe_path): mixtral-8x7b at full width, 1 layer, f32
      compute, through Engine.generate and the kernels: six prompts (4,160
      to 12 tokens) in two waves of 4 slots, 16 greedy tokens; every
@@ -222,7 +224,11 @@ Phases, each fatal on any mismatch:
      port's StepCost (the kernels' noted work counted); the dry run's dot
      FLOPs must equal the card's, and its predicted per-rank bytes lie
      within DRYRUN_MEMORY_TOL of torch.cuda.max_memory_allocated; the
-     roofline's step time is printed beside the measured one.
+     roofline's step time is printed beside the measured one. The
+     smollm-360m x train_4k record's per-rank dot FLOPs, peak and
+     arguments are printed beside the record the step gave before it
+     computed its "model" parts (DRYRUN_BEFORE: the whole model gathered
+     on every rank), and the FLOPs and the peak must be lower.
 
 Matrix products run in full precision wherever the port is compared with
 a reference (no TF32, no reduced-precision bf16 reductions).
@@ -292,6 +298,7 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.roofline.analysis import (PEAK_FLOPS,  # noqa: E402
                                            model_flops_estimate)
 from repro_torch.roofline.counter import StepCost  # noqa: E402
+from repro_torch.sharding import ctx as shard_ctx  # noqa: E402
 from repro_torch.sharding import set_rules  # noqa: E402
 from repro_torch.sharding.rules import is_whole, make_rules  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
@@ -3298,10 +3305,12 @@ SHARDED_TIMED = slice(1, SHARDED_STEPS)      # steps 2-4
 
 
 def sharded_spans(trainer, model, params, opt, step: int) -> dict:
-    """One sharded step with its gather and reduce (``steps.gather_params``
-    and ``steps._dp_mean``) each timed to a synchronize: their ms and
-    calls, and the step's."""
-    spans = {"gather": [], "reduce": []}
+    """One sharded step, with its parts the one-device step lacks (each
+    parameter's dp gather at its layer unit, ``ctx.gather_param``, and
+    the global norm over shards, ``steps.global_norm``) counted and the
+    norm timed to a synchronize; the step's ms, and whether the model's
+    parameters are the shards' own storage after it."""
+    spans = {"gather_param": [], "global_norm": []}
 
     def timed(name, fn):
         def run(*args):
@@ -3312,10 +3321,16 @@ def sharded_spans(trainer, model, params, opt, step: int) -> dict:
             spans[name].append((time.perf_counter() - t0) * 1e3)
             return out
         return run
+
+    def counted(fn):
+        def run(*args):
+            spans["gather_param"].append(0.0)
+            return fn(*args)
+        return run
     batch = trainer.put_batch(step)
-    orig = steps_mod.gather_params, steps_mod._dp_mean
-    steps_mod.gather_params = timed("gather", orig[0])
-    steps_mod._dp_mean = timed("reduce", orig[1])
+    orig = shard_ctx.gather_param, steps_mod.global_norm
+    shard_ctx.gather_param = counted(orig[0])
+    steps_mod.global_norm = timed("global_norm", orig[1])
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3324,9 +3339,14 @@ def sharded_spans(trainer, model, params, opt, step: int) -> dict:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        steps_mod.gather_params, steps_mod._dp_mean = orig
-    return {"step_ms": step_ms, **{k: {"ms": sum(v), "calls": len(v)}
-                                   for k, v in spans.items()}}
+        shard_ctx.gather_param, steps_mod.global_norm = orig
+    bound = all(p.untyped_storage()._cdata
+                == params[n].to_local().untyped_storage()._cdata
+                for n, p in model.named_parameters())
+    return {"step_ms": step_ms, "params_are_shards": bound,
+            "gather_param": {"calls": len(spans["gather_param"])},
+            "global_norm": {"ms": sum(spans["global_norm"]),
+                            "calls": len(spans["global_norm"])}}
 
 
 def lm_train_sharded(dev, probe: dict) -> dict:
@@ -3431,6 +3451,9 @@ def lm_train_sharded(dev, probe: dict) -> dict:
     check(one_device["differ"] == 0 and on_mesh["differ"] == 0,
           f"checkpoint round trip: one device {one_device}, "
           f"mesh {on_mesh}")
+    check(spans["params_are_shards"] and spans["gather_param"]["calls"] > 0
+          and spans["global_norm"]["calls"] == 1,
+          f"the sharded step did not take its path: {spans}")
     del out, trainer
     torch.cuda.empty_cache()
     res["wall_s"] = time.perf_counter() - t_phase
@@ -4584,6 +4607,11 @@ DRYRUN_VALIDATE = {
                 True)}
 # predicted per-rank bytes against the card's max_memory_allocated
 DRYRUN_MEMORY_TOL = 0.10
+# smollm-360m x train_4k at 16 x 16 before the step computed its "model"
+# parts (PERF.md §6, the table's earlier columns): per-rank dot FLOPs,
+# peak and arguments
+DRYRUN_BEFORE = {"arch": "smollm-360m", "shape": "train_4k",
+                 "flops": 3.773e14, "peak_gib": 21.11, "arg_gib": 1.36}
 # the dry runs' process: a world opens once per process, and it sees no
 # card (nothing of it may touch the card this script measures)
 DRYRUN_CODE = """
@@ -4703,7 +4731,20 @@ def dryrun_path(dry: DryRun, legs: dict) -> dict:
               and all(math.isfinite(rec[k]) for k in (
                   "compute_s", "memory_s", "collective_s")),
               f"dry run of {rec['arch']} x {rec['shape']}: {rec}")
-    out = {"process_s": recs["seconds"], "wait_s": wait_s, "legs": {}}
+    rec = next(r for r in recs["cli"] if r["arch"] == DRYRUN_BEFORE["arch"]
+               and r["shape"] == DRYRUN_BEFORE["shape"])
+    now = {"flops": rec["flops"],
+           "peak_gib": rec["total_dev_bytes"] / 2**30,
+           "arg_gib": rec["arg_bytes"] / 2**30}
+    emit({"dryrun_vs_before": {"cell": f"{rec['arch']} x {rec['shape']} "
+                               f"{rec['mesh']}", "now": now,
+                               "before": DRYRUN_BEFORE}})
+    check(now["flops"] < DRYRUN_BEFORE["flops"]
+          and now["peak_gib"] < DRYRUN_BEFORE["peak_gib"],
+          f"the sharded step's dry run did not fall: {now} against "
+          f"{DRYRUN_BEFORE}")
+    out = {"process_s": recs["seconds"], "wait_s": wait_s, "legs": {},
+           "vs_before": now}
     for name, leg in legs.items():
         rec = recs[name]
         peak = leg["max_memory_allocated"]

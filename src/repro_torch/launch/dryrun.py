@@ -20,16 +20,18 @@ so tests call the dry run in a subprocess.
 
 The steps are the port's as they run today:
   * train: ``make_train_step(rules=)`` with AdamW, the remat policy and
-    microbatches: the full parameters gathered into the model, each
-    rank's rows of the batch, the dp average of loss and gradients, the
-    MoE aux's all-reduces, AdamW on the shards;
-  * prefill (or HuBERT's encode) and decode: the port has no sharded
-    serving step, so these take the training step's layout, the
-    parameters placed by the rules and gathered whole
-    (``gather_params``), and compute on this rank's rows of the batch
-    and cache, split by the dp axes (a cache's "model" split gathered).
-    ``pos`` of decode is the cache's last slot. ROADMAP item 9c changes
-    all of this (activation-sharded compute, per-unit gathering).
+    microbatches: the model bound to this rank's shards, each rank's rows
+    of the batch, each layer unit's parameters gathered over the dp axes
+    while it runs, tensor and sequence parallelism over "model" for
+    attention, the MLPs, the MoE FFN, the embedding and the loss (the
+    recurrent mixers whole on every rank), the gradients reduce-scattered
+    to the shards, AdamW on the shards;
+  * prefill (or HuBERT's encode) and decode: only serving keeps the old
+    layout, the port having no sharded serving step (ROADMAP item 9d):
+    the parameters placed by the rules and gathered whole
+    (``gather_params``), computing on this rank's rows of the batch and
+    cache, split by the dp axes (a cache's "model" split gathered).
+    ``pos`` of decode is the cache's last slot.
 
 The record keeps the reference's keys: ``arch``, ``shape``, ``mesh``,
 ``supported``, ``reason``, ``Roofline.asdict()``, ``lower_s`` (here the
@@ -61,7 +63,8 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.roofline import analysis as RL
 from repro_torch.roofline.counter import StepCost
 from repro_torch.sharding import set_rules
-from repro_torch.sharding.rules import _tree_map, make_rules
+from repro_torch.sharding.rules import _tree_map, make_rules, \
+    param_shardings
 
 
 def open_world(n: int) -> bool:
@@ -90,8 +93,9 @@ def _own_cache(x):
 def build_step(cfg: ModelConfig, shape: ShapeSpec, rules,
                microbatches: int = 1):
     """``step(model, *input_specs)``: one step of ``shape.kind`` on this
-    rank, ``model`` the compute copy whose whole shards are bound to the
-    inputs' parameters (``steps.bind``)."""
+    rank, ``model`` the compute copy bound to the inputs' parameters:
+    to every shard for train (``steps.bind_shards``), to the whole ones
+    for serving (``steps.bind``)."""
     if shape.kind == "train":
         train = S.make_train_step(cfg, AdamWConfig(), microbatches, rules)
 
@@ -158,7 +162,11 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeSpec], *,
         args = input_specs(cfg, shape, rules)
         model = LM(cfg, META)
         model.requires_grad_(shape.kind == "train")
-        S.bind(model, args[0])
+        if shape.kind == "train":
+            S.bind_shards(model, args[0], rules,
+                          param_shardings(rules, cfg))
+        else:
+            S.bind(model, args[0])
         with StepCost() as cost:
             cost.hold(model, *args)
             out = step(model, *args)

@@ -2,6 +2,17 @@
 layers, the MLPs, rotary embeddings (RoPE and Qwen2-VL's M-RoPE),
 embedding, unembedding and the loss.
 
+Inside the sharded train step (``sharding.ctx.sharded``) the MLP, the
+embedding and the loss compute this rank's parts, Megatron style: a
+column-parallel ``wi`` on the whole sequence and a row-parallel ``wo``
+whose partial sums are reduce-scattered back to the rank's part of the
+residual (``mlp_tp``; SwiGLU's fused gate|up columns first exchanged into
+(gate, up) pairs, ``ctx.swiglu_pairs``), a vocab-parallel lookup
+(``embed_tokens``) and a vocab-parallel cross entropy
+(``vocab_parallel_ce``), each where the rules split the weight over
+"model"; a layer whose weights are not split runs whole on every rank
+(``ctx.whole_block``).
+
 Parameters live in ``nn.Module`` containers whose leaves keep the
 reference's names (``norm.scale``, ``wq.w``, ``wi.b``, ...). They are
 stored in ``cfg.param_dtype`` (float32) and cast to ``cfg.compute_dtype``
@@ -17,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -108,7 +120,55 @@ def linear(p: Linear, x, cfg: ModelConfig):
     return y
 
 
+def seq_norm(p: Norm):
+    """``p`` as read by this rank's part of a sequence-split residual
+    stream inside the sharded step: its scale and bias gradients summed
+    over "model" (``ctx.seq_param``); ``p`` itself elsewhere."""
+    if ctx.sharded() is None:
+        return p
+    return _NormView(ctx.seq_param(p.scale),
+                     None if p.bias is None else ctx.seq_param(p.bias))
+
+
+class _NormView:
+    def __init__(self, scale, bias):
+        self.scale, self.bias = scale, bias
+
+
+def row_out(partial, b, cfg: ModelConfig):
+    """A row-parallel product's partial sums as this rank's part of the
+    residual stream (reduce-scattered, or all-reduced where the stream is
+    whole), plus the bias every rank holds whole."""
+    out = ctx.shard_hint(partial, "acts", "partial")
+    if b is not None:
+        out = out + ctx.seq_param(b).to(cdt(cfg))
+    return out
+
+
 def apply_mlp(p: MLP, x, cfg: ModelConfig):
+    if ctx.sharded() is not None:
+        return mlp_tp(p, x, cfg)
+    return _mlp(p, x, cfg)
+
+
+def mlp_tp(p: MLP, x, cfg: ModelConfig):
+    """The MLP of this rank's part ``x`` of the residual stream: ``wi``
+    column-parallel, ``wo`` row-parallel, where the rules split both over
+    "model"; else whole on every rank."""
+    if ctx.split_dim(p.wi.w) != 1 or ctx.split_dim(p.wo.w) != 0:
+        return ctx.whole_block(p, lambda xw: _mlp(p, xw, cfg), x)
+    st = ctx.sharded()
+    h = ctx.whole_seq(apply_norm(seq_norm(p.norm), x, cfg), grad_sum=True)
+    if cfg.mlp == "swiglu":
+        w = ctx.swiglu_pairs(p.wi.w.to(cdt(cfg)), st.model)
+        g, u = (h @ w).chunk(2, dim=-1)
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(linear(p.wi, h, cfg), approximate="tanh")
+    return row_out(h @ p.wo.w.to(cdt(cfg)), p.wo.b, cfg)
+
+
+def _mlp(p: MLP, x, cfg: ModelConfig):
     h = apply_norm(p.norm, x, cfg)
     if cfg.mlp == "swiglu":
         g, u = linear(p.wi, h, cfg).chunk(2, dim=-1)          # gate first
@@ -164,8 +224,25 @@ def _rotate(x, ang):
 def embed_tokens(p: Embed, tokens, cfg: ModelConfig):
     """The rows of ``p.w``. ``F.embedding``, not ``p.w[tokens]``: the
     latter's backward (``index_put_`` accumulating) adds repeated tokens'
-    rows with atomics on the CPU, in an order that changes run to run."""
-    return F.embedding(tokens.long(), p.w).to(cdt(cfg))
+    rows with atomics on the CPU, in an order that changes run to run.
+    Where the sharded step holds this rank's vocabulary rows, the rows of
+    the tokens it holds and zeros elsewhere: a partial sum over
+    "model"."""
+    if ctx.split_dim(p.w) != 0:
+        return F.embedding(tokens.long(), p.w).to(cdt(cfg))
+    v = p.w.shape[0]
+    t = tokens.long() - ctx.sharded().model.rank * v
+    inside = (t >= 0) & (t < v)
+    rows = F.embedding(torch.where(inside, t, 0), p.w)
+    return (rows * inside[..., None]).to(cdt(cfg))
+
+
+def unembed_split(model, cfg: ModelConfig) -> bool:
+    """Whether the sharded step holds this rank's vocabulary part of the
+    unembedding (the tied embedding's rows or ``lm_head``'s columns)."""
+    if cfg.tie_embeddings:
+        return ctx.split_dim(model.embed.w) == 0
+    return ctx.split_dim(model.lm_head.w) == 1
 
 
 def unembed(model, x, cfg: ModelConfig):
@@ -184,3 +261,21 @@ def cross_entropy(logits, labels, mask=None):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def vocab_parallel_ce(logits, labels, ax):
+    """``cross_entropy`` of logits split along the vocabulary over ``ax``
+    (this rank's block of V / n columns): the max and the sum of the
+    logsumexp all-reduced, the target's logit from the rank that holds
+    it (the others add zeros). Every rank returns the whole mean."""
+    import torch.distributed as dist
+    logits = logits.float()
+    v = logits.shape[-1]
+    m = ctx.all_reduce(logits.detach().amax(dim=-1), ax, dist.ReduceOp.MAX)
+    se = ctx.reduce_sum(torch.exp(logits - m[..., None]).sum(dim=-1), ax)
+    lse = torch.log(se) + m
+    t = labels.long() - ax.rank * v
+    inside = (t >= 0) & (t < v)
+    ll = logits.gather(-1, torch.where(inside, t, 0)[..., None])[..., 0]
+    ll = ctx.reduce_sum(ll * inside, ax)
+    return (lse - ll).mean()

@@ -28,6 +28,17 @@ a selective checkpoint that keeps the unit's matrix products
 (``checkpoint_dots``); ``group:k``, one checkpoint per k units around a
 checkpoint per unit. ``chunked_lm_loss`` checkpoints each 1,024-token
 chunk of the loss, so (B, S, V) logits never exist at once.
+
+In the sharded train step (``sharding.ctx.sharded``) each pattern unit's
+parameters are gathered over the dp axes inside the unit's body
+(``ctx.gathered``), so a checkpoint's recompute gathers them again, and
+the residual stream is this rank's part of the sequence where the "acts"
+spec splits it. Attention, the MLPs, the MoE FFN, the embedding and the
+loss compute this rank's "model" parts; the recurrent mixers run whole on
+every rank on the gathered sequence (``ctx.whole_block``; their "acts_ffn"
+split is ROADMAP item 9d). Under remat ``none`` autograd keeps each
+unit's gathered weights (its "model" part, whole over the dp axes) for
+the backward.
 """
 from __future__ import annotations
 
@@ -47,9 +58,11 @@ from repro_torch.models.attention import AttnMixer, KVCache, attn_block, \
     remat_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Linear, Norm, apply_mlp, \
-    apply_norm, cdt, cross_entropy, embed_tokens, linear, unembed
+    apply_norm, cdt, cross_entropy, embed_tokens, linear, seq_norm, \
+    unembed, unembed_split, vocab_parallel_ce
 from repro_torch.models.moe import MoE, apply_moe
 from repro_torch.models.schema import ATTN_KINDS, layer_groups
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import shard_hint
 
 _MIXERS = {"rglru": rec.RGLRUMixer, "mlstm": rec.MLSTMMixer,
@@ -165,7 +178,11 @@ def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
                  cache_pos, mode: str, prefill_pad: int = 0):
     """One layer. Returns (x, new_cache, aux): aux is the MoE FFN's
     load-balancing loss, a 0-dim f32 zero without one."""
-    if block.kind in _BLOCKS:
+    if block.kind in _BLOCKS and ctx.sharded() is not None:
+        fn = _BLOCKS[block.kind]
+        out, c_new = ctx.whole_block(block.mixer, lambda xw: fn(
+            block.mixer, xw, cfg, None)[0], x), None
+    elif block.kind in _BLOCKS:
         out, c_new = _BLOCKS[block.kind](block.mixer, x, cfg, cache)
     else:
         out, c_new = attn_block(block.mixer, x, cfg, block.kind,
@@ -226,10 +243,11 @@ def _train_stack(model: LM, cfg: ModelConfig, x, positions):
     layers' summed aux), the aux carried through every checkpoint as the
     reference carries it through its scans."""
     def unit_body(x, aux, blocks):
-        for block in blocks:
-            x, _, a = _apply_block(block, x, cfg, None, positions, None,
-                                   "train")
-            aux = aux + a
+        with ctx.gathered(blocks):
+            for block in blocks:
+                x, _, a = _apply_block(block, x, cfg, None, positions, None,
+                                       "train")
+                aux = aux + a
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -281,24 +299,32 @@ def forward(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
             "flash_attention and rglru_scan have no backward (nor have the "
             "JAX package's Pallas kernels); train with use_kernels=False "
             "(ROADMAP.md, queue item 11)")
-    if embeds is not None:
-        x = linear(model.frontend_proj, embeds.to(cdt(cfg)), cfg)
-    elif model.embed is None:
-        # the reference fails here too, on its missing "embed" leaf
-        raise ValueError(f"{cfg.name} has no token embedding: it takes "
-                         "frame embeddings (embeds=), not token ids")
-    else:
-        x = embed_tokens(model.embed, tokens, cfg)
-    x = shard_hint(x, "acts")
+    st = ctx.sharded() if mode == "train" else None
+    src = "whole"       # in the sharded step: what each rank holds
+    with ctx.gathered([model.frontend_proj, model.embed] if st else []):
+        if embeds is not None:
+            x = linear(model.frontend_proj, embeds.to(cdt(cfg)), cfg)
+        elif model.embed is None:
+            # the reference fails here too, on its missing "embed" leaf
+            raise ValueError(f"{cfg.name} has no token embedding: it takes "
+                             "frame embeddings (embeds=), not token ids")
+        else:
+            x = embed_tokens(model.embed, tokens, cfg)
+            if ctx.split_dim(model.embed.w) == 0:
+                src = "partial"     # a vocab-parallel lookup
     if positions is None:
         base = torch.arange(x.shape[1], device=x.device)[None, :]
         if mode == "decode":
             base = base + cache_pos
         positions = base.expand(*((3,) if cfg.mrope else ()), x.shape[0],
                                 -1)
+    if st is not None:
+        st.begin_stream(x.shape)
+    x = shard_hint(x, "acts", src)
     if mode == "train":
         x, aux = _train_stack(model, cfg, x, positions)
-        return apply_norm(model.final_norm, x, cfg), None, aux
+        with ctx.gathered([model.final_norm] if st else []):
+            return apply_norm(seq_norm(model.final_norm), x, cfg), None, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = []
     for li, block in enumerate(model.layers):
@@ -319,20 +345,35 @@ def chunked_lm_loss(model: LM, cfg: ModelConfig, x, labels,
                     chunk: int = 1024):
     """Cross-entropy without materializing (B, S, V): one checkpointed
     chunk of ``chunk`` tokens at a time, its logits recomputed in the
-    backward. The mean of the ``s // chunk`` chunk means."""
+    backward. The mean of the ``s // chunk`` chunk means. In the sharded
+    step ``x`` is this rank's part of the stream, gathered whole along
+    the sequence here, and the logits are this rank's vocabulary part
+    where the rules split the unembedding (``vocab_parallel_ce``)."""
+    st = ctx.sharded()
+    split = st is not None and unembed_split(model, cfg)
+    x = ctx.whole_seq(x, grad_sum=split)
     b, s, d = x.shape
     ck = min(chunk, s)
     n = s // ck
     xs = x.reshape(b, n, ck, d)
     ls = labels.reshape(b, n, ck)
 
-    def body(xc, lc):
-        return cross_entropy(shard_hint(unembed(model, xc, cfg), "logits"),
-                             lc)
+    # the weight is an argument of the checkpointed chunk, so that its
+    # recompute reads what this call read (in the sharded step the dp
+    # gather, which is gone from the model by then)
+    w = model.embed.w if cfg.tie_embeddings else model.lm_head.w
+
+    def body(xc, lc, w):
+        w = w.to(cdt(cfg))
+        logits = shard_hint(xc @ (w.T if cfg.tie_embeddings else w),
+                            "logits")
+        if split:
+            return vocab_parallel_ce(logits, lc, st.model)
+        return cross_entropy(logits, lc)
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
-        tot = tot + remat_chunk(body, xs[:, i], ls[:, i])
+        tot = tot + remat_chunk(body, xs[:, i], ls[:, i], w)
     return tot / n
 
 
@@ -356,7 +397,9 @@ def loss_fn(model: LM, cfg: ModelConfig, batch):
             positions = positions[..., :-1]
     x, _, aux = forward(model, cfg, tokens=inputs, embeds=embeds,
                         positions=positions, mode="train")
-    return chunked_lm_loss(model, cfg, x, labels) + aux
+    head = [model.embed if cfg.tie_embeddings else model.lm_head]
+    with ctx.gathered(head if ctx.sharded() else []):
+        return chunked_lm_loss(model, cfg, x, labels) + aux
 
 
 def decay_ndims(model: LM) -> dict:

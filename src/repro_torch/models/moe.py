@@ -23,6 +23,17 @@ module functions, so that a caller can observe the routing.
 
 Returns ``(out, aux)``, aux being the load-balancing loss of the first
 choice (Switch/Mixtral form).
+
+Inside the sharded train step ``apply_moe`` runs ``moe_tp`` on this
+rank's part of the residual stream. Routing, slots and capacity are
+computed on the whole sequence (gathered along it), so every rank numbers
+each row's (token, choice) pairs as one device does. Where the rules
+split the experts over "model", each rank dispatches to and runs its own
+experts (the "expert_buf4" buffer); where they split the experts' "ffn"
+dim instead, each rank runs every expert on its columns of ``wi`` and
+rows of ``wo``. Either way the combine is a partial sum over "model",
+reduce-scattered to the rank's part of the stream; a layer whose experts
+are split neither way runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -31,7 +42,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Norm, apply_norm, cdt, param
+from repro_torch.models.layers import Norm, apply_norm, cdt, param, \
+    seq_norm
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import batch_mean, shard_hint
 
 
@@ -95,40 +108,88 @@ def _slots(experts, e: int, cap: int):
 
 def apply_moe(p: MoE, x, cfg: ModelConfig):
     """The MoE FFN of (B, S, d) ``x``: (out (B, S, d), aux ())."""
-    b, s, d = x.shape
+    if ctx.sharded() is not None:
+        return moe_tp(p, x, cfg)
+    return _moe(p, x, cfg)
+
+
+def _aux(probs, experts, e: int, cfg: ModelConfig):
+    """The load-balancing loss of the first choice, its fractions over
+    the global batch when the sharded step splits the rows."""
+    frac_tokens = batch_mean(
+        F.one_hot(experts[..., 0], e).float().mean(dim=(0, 1)))
+    frac_probs = batch_mean(probs.mean(dim=(0, 1)))
+    return e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_coef
+
+
+def moe_tp(p: MoE, x, cfg: ModelConfig):
+    """The sharded train step's MoE FFN of this rank's part ``x`` (B, s,
+    d) of the residual stream (module doc): (this rank's part of the
+    output, aux)."""
+    by_expert = ctx.split_dim(p.wi) == 0 and ctx.split_dim(p.wo) == 0
+    by_ffn = ctx.split_dim(p.wi) == 2 and ctx.split_dim(p.wo) == 1
+    if not (by_expert or by_ffn):
+        return ctx.whole_block(p, lambda xw: _moe(p, xw, cfg), x)
+    hx = apply_norm(seq_norm(p.norm), x, cfg)
+    partial, aux = _routed(p, ctx.whole_seq(hx, grad_sum=False),
+                           ctx.whole_seq(hx, grad_sum=True), cfg,
+                           ctx.sharded(), by_expert)
+    return shard_hint(partial, "acts", "partial"), aux
+
+
+def _moe(p: MoE, x, cfg: ModelConfig):
+    hx = apply_norm(p.norm, x, cfg)                          # (B, S, d)
+    return _routed(p, hx, hx, cfg)
+
+
+def _routed(p: MoE, h_route, h_disp, cfg: ModelConfig, st=None,
+            by_expert: bool = False):
+    """Route the tokens of ``h_route``, dispatch those of ``h_disp``
+    (the same (B, S, d) values), run the experts and combine: (out, aux).
+    In the sharded step (``st``) this rank runs its own experts
+    (``by_expert``) or every expert on its "ffn" columns, and ``out`` is
+    its share of a sum over "model"."""
+    b, s, d = h_route.shape
     e, k = cfg.n_experts, cfg.topk
     dt = cdt(cfg)
     cap = capacity(s, cfg)
-
-    hx = apply_norm(p.norm, x, cfg)                          # (B, S, d)
-    probs, gates, experts = route(hx, p.router.w, k)
+    probs, gates, experts = route(h_route, p.router.w, k)
     slot, keep = _slots(experts, e, cap)
+    n_local, wi = e, p.wi.to(dt)
+    if st is not None:
+        # the combine is a per-rank share: its gate gradients summed
+        gates = ctx.copy(gates, st.model)
+        if by_expert:                   # this rank's experts' slots only
+            n_local = e // st.model.n
+            lo = st.model.rank * n_local * cap
+            keep = keep & (slot >= lo) & (slot < lo + n_local * cap)
+            slot = torch.where(keep, slot - lo,
+                               torch.full_like(slot, n_local * cap))
+        else:
+            wi = ctx.swiglu_pairs(wi, st.model)
 
     # dispatch: each kept (token, choice) pair into its own slot
-    src = hx.repeat_interleave(k, dim=1) * keep[..., None].to(dt)
-    rows = torch.arange(b, device=x.device)[:, None].expand_as(slot)
-    buf = torch.zeros((b, e * cap + 1, d), dtype=dt, device=x.device)
+    dev = h_disp.device
+    src = h_disp.repeat_interleave(k, dim=1) * keep[..., None].to(dt)
+    rows = torch.arange(b, device=dev)[:, None].expand_as(slot)
+    buf = torch.zeros((b, n_local * cap + 1, d), dtype=dt, device=dev)
     buf = buf.index_put((rows, slot), src)
-    buf = shard_hint(buf[:, :e * cap].reshape(b, e, cap, d), "expert_buf4")
+    buf = shard_hint(buf[:, :n_local * cap].reshape(b, n_local, cap, d),
+                     "expert_buf4")
 
     # the expert FFN (SwiGLU)
-    gu = torch.einsum("becd,edf->becf", buf, p.wi.to(dt))
+    gu = torch.einsum("becd,edf->becf", buf, wi)
     g, u = gu.chunk(2, dim=-1)
     out_buf = shard_hint(torch.einsum("becf,efd->becd", F.silu(g) * u,
                                       p.wo.to(dt)), "expert_buf4")
 
     # combine: each pair's row (the sink a fresh zero row), gate-weighted,
     # summed over the k choices
-    flat = torch.cat([out_buf.reshape(b, e * cap, d),
-                      torch.zeros((b, 1, d), dtype=dt, device=x.device)], 1)
+    flat = torch.cat([out_buf.reshape(b, n_local * cap, d),
+                      torch.zeros((b, 1, d), dtype=dt, device=dev)], 1)
     gathered = flat[rows, slot]                              # (B, S*K, d)
     wts = (gates.reshape(b, s * k) * keep).to(dt)
     out = (gathered * wts[..., None]).reshape(b, s, k, d).sum(dim=2)
 
     # load-balancing aux from the first choice
-    # (over the global batch when the sharded step splits its rows)
-    frac_tokens = batch_mean(
-        F.one_hot(experts[..., 0], e).float().mean(dim=(0, 1)))
-    frac_probs = batch_mean(probs.mean(dim=(0, 1)))
-    aux = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_coef
-    return out, aux
+    return out, _aux(probs, experts, e, cfg)

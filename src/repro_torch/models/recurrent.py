@@ -18,6 +18,12 @@ The mLSTM and sLSTM are torch operations, as the reference computes them
 in plain XLA (no Pallas kernel). Under autograd each mLSTM chunk and each
 sLSTM block is recomputed in the backward (the reference's
 ``jax.checkpoint`` on them). States live in the layer cache.
+
+In the sharded train step these blocks split nothing over "model": each
+runs whole on every rank, on its layer unit's parameters gathered whole
+over "model" and on the sequence gathered whole, and returns the rank's
+slice of the stream (``models.model``, ``sharding.ctx.whole_block``);
+the "acts_ffn" split of their widths is ROADMAP item 9d.
 """
 from __future__ import annotations
 

@@ -10,22 +10,27 @@ parameters and ``opt_state``. Metrics are 0-dim tensors: ``loss``,
 With ``rules`` (``sharding.rules``), the step is the sharded one,
 ``train_step(model, opt_state, batch, params)``: ``params`` {name:
 DTensor} and ``opt_state``'s moments are placed by the rules
-(``shard_state``), and ``model`` is the compute copy. The arithmetic
-stays on plain tensors, so the step computes what the one-device step
-computes (the reference's GSPMD guarantee: only the layout changes):
-  1. gather: each parameter whose shard is not the whole tensor is
-     gathered in full into the model (``full_tensor``, exact);
-  2. each rank runs the loss on its rows of microbatch i of the global
+(``shard_state``), and ``model``'s parameters are bound to this rank's
+shards (``bind_shards``, no copy). The step computes what the reference's
+GSPMD step computes, on plain local tensors (``sharding.ctx``):
+  1. each rank runs the loss on its rows of microbatch i of the global
      batch: the rows split over the dp axes where they divide, as
      ``input_shardings`` lays the leading dim out (M-RoPE positions by
      their batch axis 1), else all of them;
-  3. reduce: where the rows were split, the loss and gradients are
-     averaged over the dp ranks (ranks along "model" share rows);
-  4. the global norm of the whole gradients, then ``adamw.update`` on
-     each rank's shards of the parameters, moments and gradients.
-A mesh with data extent 1 is bit for bit the one-device step; above 1 the
-gradient sums run in another order. Per-unit gathering and activation
-sharding over "model" are not ported (ROADMAP.md, item 9c).
+  2. each layer unit gathers its parameters over the dp axes while it
+     runs (backward: the gradients reduce-scattered over them and
+     averaged where the rows were split) and computes with its "model"
+     part of every parameter the rules split over "model": tensor and
+     sequence parallelism for attention, the MLPs, the MoE FFN, the
+     embedding and the loss (``models.model``);
+  3. the gradients arrive as this rank's shards; the loss is averaged
+     over the dp ranks; the global norm sums each shard's squares once
+     (``global_norm``), and ``adamw.update`` runs on the rank's shards of
+     the parameters, moments and gradients.
+A (1, 1) mesh is bit for bit the one-device step. So is a mesh whose
+ranks all compute every row and split nothing over "model"; otherwise
+the sums of the split products, of the vocabulary's logsumexp and of the
+gradients over the ranks run in another order.
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry points,
 ``make_encode_step`` the encoder-only one (HuBERT).
@@ -33,16 +38,13 @@ PyTorch runs eagerly, so a step is the function itself, with no ``jit``.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
-import torch.distributed as dist
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.sharding import ctx
-from repro_torch.sharding.rules import distribute, is_whole, local_part, \
+from repro_torch.sharding.rules import distribute, is_whole, \
     opt_state_shardings, param_shardings
 
 
@@ -78,6 +80,7 @@ def _loss_and_grads(model, loss_fn, batches):
 def make_train_step(cfg: ModelConfig, hp: adamw.AdamWConfig,
                     microbatches: int = 1, rules=None):
     loss_fn = make_loss_fn(cfg)
+    shardings = None if rules is None else param_shardings(rules, cfg)
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
@@ -90,26 +93,27 @@ def make_train_step(cfg: ModelConfig, hp: adamw.AdamWConfig,
         return dict(metrics, loss=loss)
 
     def sharded_step(model, opt_state, batch, params):
-        gather_params(model, params)
+        bind_shards(model, params, rules, shardings)
         batches = [{k: _rows(k, v, i, microbatches, rules)
                     for k, v in batch.items()}
                    for i in range(microbatches)]
         split = _split(batch, microbatches, rules)
-        with ctx.split_rows(rules) if split else contextlib.nullcontext():
+        with ctx.sharded_step(rules, split) as st:
             loss, grads = _loss_and_grads(model, loss_fn, batches)
-        if split:
-            loss, grads = _dp_mean(loss, grads, rules)
+            if split:
+                for _, ax in st.dp:
+                    loss = ctx.all_reduce(loss, ax)
+                loss = loss / st.dp_n
         names = [n for n, _ in model.named_parameters()]
         with torch.no_grad():
-            gnorm = adamw.global_norm(grads[n] for n in names)
+            gnorm = global_norm([grads[n] for n in names],
+                                [params[n] for n in names])
             shards = {n: params[n].to_local() for n in names}
-            local = {n: local_part(grads[n], params[n].device_mesh,
-                                   params[n].placements) for n in names}
             state = adamw.AdamWState(
                 {n: opt_state.m[n].to_local() for n in names},
                 {n: opt_state.v[n].to_local() for n in names},
                 opt_state.step.to_local())
-        metrics = adamw.update(local, state, shards, hp,
+        metrics = adamw.update(grads, state, shards, hp,
                                ndims=M.decay_ndims(model), gnorm=gnorm)
         return dict(metrics, loss=loss)
 
@@ -163,25 +167,81 @@ def shard_state(model, rules, cfg: ModelConfig):
 def bind(model, params) -> None:
     """Make each of ``model``'s parameters whose shard in ``params`` is
     the whole tensor that shard's storage (a restored state); the others
-    are filled by ``gather_params``."""
+    are filled by ``gather_params``. The serving steps' layout."""
     for name, p in model.named_parameters():
         shard = params[name]
         if is_whole(shard.device_mesh, shard.placements):
             p.data = shard.to_local()
 
 
+def _same_storage(a, b) -> bool:
+    """Storages compare by identity, not by data pointer: on the meta
+    device (the dry run) every pointer is 0."""
+    return a.untyped_storage()._cdata == b.untyped_storage()._cdata
+
+
+@torch.no_grad()
+def bind_shards(model, params, rules, shardings) -> None:
+    """Make each of ``model``'s parameters this rank's shard of it in
+    ``params`` (the sharded step's compute copy: no copy, no gather), and
+    note on it how the step reads it, from its spec in ``shardings``
+    (the rules' ``param_shardings``): ``model_dim``, the
+    dim the rules split over "model" (or None), and ``dp_plan``, (dim or
+    None, Axis) per dp mesh dim of extent > 1, minor to major
+    (``ctx.gather_param``). A shard that is not its spec's block raises."""
+    dp = ctx.Sharded(rules, False).dp
+    for name, p in model.named_parameters():
+        shard, spec = params[name], shardings[name].spec
+        local = shard.to_local()
+        if tuple(local.shape) != rules.local_shape(shard.shape, spec):
+            raise ValueError(f"{name}: shard {tuple(local.shape)} is not "
+                             f"the block of {tuple(shard.shape)} by {spec}")
+        if not _same_storage(local, p):
+            p.data = local
+        over = [rules.split_over(spec, d) for d in range(len(spec))]
+        p.model_dim = over.index("model") if "model" in over else None
+        p.dp_plan = tuple((next((d for d, e in enumerate(spec)
+                                 if a in rules.entry_axes(e)), None), ax)
+                          for a, ax in dp)
+
+
 @torch.no_grad()
 def gather_params(model, params) -> None:
     """Each of ``model``'s parameters in full from its shard in
     ``params``: nothing to do where the model's tensor is the shard's
-    storage, ``full_tensor`` (every rank takes part) elsewhere. Storages
-    compare by identity, not by data pointer: on the meta device (the dry
-    run) every pointer is 0."""
+    storage, ``full_tensor`` (every rank takes part) elsewhere. The
+    serving steps' layout; the training step never gathers the whole
+    model."""
     for name, p in model.named_parameters():
         shard = params[name]
-        if shard.to_local().untyped_storage()._cdata \
-                != p.untyped_storage()._cdata:
-            p.copy_(shard.full_tensor())
+        if _same_storage(shard.to_local(), p) and p.shape == shard.shape:
+            continue
+        full = shard.full_tensor()
+        if p.shape == full.shape:
+            p.copy_(full)
+        else:
+            p.data = full
+
+
+def global_norm(grads, params) -> torch.Tensor:
+    """``adamw.global_norm`` of the whole gradients, from this rank's
+    shards ``grads`` of ``params`` (DTensors): each shard's sum of
+    squares all-reduced over the mesh dims that split its parameter, and
+    over no other, so a part every rank of a dim holds counts once."""
+    sq = [g.float().square().sum() for g in grads]
+    if params:
+        mesh = params[0].device_mesh
+        for i in range(mesh.ndim):
+            if mesh.size(i) == 1:
+                continue
+            idx = [j for j, p in enumerate(params)
+                   if p.placements[i].is_shard()]
+            if idx:
+                ax = ctx.mesh_axis(mesh, mesh.mesh_dim_names[i])
+                got = ctx.all_reduce(torch.stack([sq[j] for j in idx]), ax)
+                for k, j in enumerate(idx):
+                    sq[j] = got[k]
+    return torch.sqrt(torch.stack(sq).sum())
 
 
 def _dp_index(rules):
@@ -223,24 +283,6 @@ def _rows(key: str, x, i: int, microbatches: int, rules):
         return part
     idx, n = _dp_index(rules)
     return part.narrow(ax, idx * (rows // n), rows // n)
-
-
-def _dp_mean(loss, grads, rules):
-    """The loss and gradients averaged over the dp ranks: one all-reduce
-    over each dp mesh dim of a flat f32 buffer."""
-    groups, n = ctx.dp_groups(rules)
-    names = list(grads)
-    flat = torch.cat([loss.reshape(1).float()]
-                     + [grads[k].reshape(-1).float() for k in names])
-    for group in groups:
-        dist.all_reduce(flat, group=group)
-    flat /= n
-    out, at = {}, 1
-    for k in names:
-        g = grads[k]
-        out[k] = flat[at:at + g.numel()].view(g.shape).to(g.dtype)
-        at += g.numel()
-    return flat[0], out
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -21,7 +21,10 @@ dry run, ``launch.dryrun``), and counts:
               ``raw_bytes`` counts every op.
   * collectives -- every ``c10d`` and ``_c10d_functional`` collective:
               its kind, its group's size and its result's bytes, which
-              ``analysis.parse_collectives`` turns into ring bytes.
+              ``analysis.parse_collectives`` turns into ring bytes. The
+              sharded train step issues c10d all-gathers, reduce-scatters,
+              all-reduces and all-to-alls (``sharding.ctx``), in the
+              forward, the backward and each recompute alike.
   * memory -- the bytes of live storages: those of the step's arguments
               (``hold``) and each storage an op creates, until it is
               freed; ``peak`` is the most at once.

@@ -162,6 +162,45 @@ class ShardingRules:
             return (dp_if(shape[0]), *([None] * (len(shape) - 1)))
         return None
 
+    # -- a spec's block on one rank --------------------------------------------
+    @staticmethod
+    def entry_axes(entry) -> Tuple[str, ...]:
+        """The mesh axes of one spec entry (None: none)."""
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def local_shape(self, shape: Sequence[int], spec: Spec) -> Tuple[int, ...]:
+        """The shape of each rank's block of a tensor of ``shape``."""
+        return tuple(n // self.axes_size(self.entry_axes(e))
+                     for n, e in zip(shape, spec))
+
+    def local_offset(self, shape: Sequence[int], spec: Spec,
+                     coord: Dict[str, int]) -> Tuple[int, ...]:
+        """Where the block of the rank at ``coord`` ({axis: index})
+        starts: a dim split over several axes is cut major to minor."""
+        out = []
+        for n, e in zip(shape, spec):
+            idx = 0
+            for a in self.entry_axes(e):
+                idx = idx * self._sizes[a] + coord.get(a, 0)
+            out.append(idx * (n // self.axes_size(self.entry_axes(e))))
+        return tuple(out)
+
+    def split_over(self, spec: Spec, dim: int) -> Optional[str]:
+        """Whether ``spec`` splits ``dim`` over "model" ("model"), over dp
+        axes only ("dp"), or not at all (None), counting axes of extent >
+        1; a dim split over both raises (no rule makes one)."""
+        axes = [a for a in self.entry_axes(spec[dim]) if self._sizes[a] > 1]
+        if not axes:
+            return None
+        if self.tp_axis in axes:
+            if len(axes) > 1:
+                raise ValueError(f"dim {dim} of {spec} is split over "
+                                 "'model' and other axes")
+            return "model"
+        return "dp"
+
     # -- DTensor placements ---------------------------------------------------
     def placements(self, spec: Spec) -> tuple:
         """The DTensor placements of ``spec`` on the rules' mesh: a tensor

@@ -36,7 +36,7 @@ from repro_torch.data.pipeline import DataConfig, device_put_batch, \
     make_source
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
-from repro_torch.models.steps import bind, gather_params, \
+from repro_torch.models.steps import bind_shards, gather_params, \
     make_train_step, shard_state
 from repro_torch.optim import adamw
 from repro_torch.sharding import set_rules
@@ -80,6 +80,8 @@ class Trainer:
         model.requires_grad_(True)
         if self.rules is not None:
             params, opt = shard_state(model, self.rules, self.cfg)
+            bind_shards(model, params, self.rules,
+                        param_shardings(self.rules, self.cfg))
             return model, params, opt, 0
         params = dict(model.named_parameters())
         return model, params, adamw.init(params), 0
@@ -102,8 +104,7 @@ class Trainer:
                            f"{self.cfg.name}")
         opt = adamw.AdamWState(**opt)
         if self.rules is not None:
-            bind(model, params)
-            gather_params(model, params)
+            bind_shards(model, params, self.rules, shard)
         else:
             with torch.no_grad():
                 for name, p in own.items():

@@ -22,7 +22,7 @@ from repro_torch.models.config import ShapeSpec
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.roofline import analysis as RL
 from repro_torch.roofline.counter import StepCost
-from repro_torch.sharding import set_rules
+from repro_torch.sharding import ctx, set_rules
 from repro_torch.sharding.rules import distribute, input_shardings, make_rules
 
 SEQ, ROWS = 64, 4                   # the one-device cells
@@ -78,14 +78,41 @@ def host_cells() -> list:
     return out
 
 
+class Issued:
+    """Records every collective the sharded train step issues, where it
+    issues them: the plain collectives of ``sharding.ctx`` (kind, group
+    size, bytes of the result per rank)."""
+    WRAPPED = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+               "all_reduce": "all-reduce", "all_to_all": "all-to-all"}
+
+    def __enter__(self):
+        self.calls, self._orig = [], {n: getattr(ctx, n) for n in self.WRAPPED}
+        for name, kind in self.WRAPPED.items():
+            setattr(ctx, name, self._wrap(self._orig[name], kind))
+        return self
+
+    def _wrap(self, fn, kind):
+        def run(x, *args, **kw):
+            out = fn(x, *args, **kw)
+            ax = next(a for a in args if isinstance(a, ctx.Axis))
+            self.calls.append((kind, ax.n, out.numel() * out.element_size()))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(ctx, name, fn)
+        return False
+
+
 def production_cells() -> list:
     out = []
     for arch, kind, remat in PROD_CELLS:
-        rec = dryrun.run_cell(get_smoke(arch), ShapeSpec(kind, SEQ,
-                                                         PROD_ROWS, kind),
-                              remat=remat, verbose=False)
+        with Issued() as issued:
+            rec = dryrun.run_cell(get_smoke(arch), ShapeSpec(
+                kind, SEQ, PROD_ROWS, kind), remat=remat, verbose=False)
         out.append({"arch": arch, "kind": kind, "remat": remat,
-                    "record": rec})
+                    "record": rec, "issued": issued.calls})
     return out
 
 

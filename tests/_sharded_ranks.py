@@ -1,11 +1,20 @@
-"""Rank processes for ``tests/test_torch_sharded_train.py``: a world of
-gloo ranks on the CPU runs a list of jobs, each on its own
-``DeviceMesh``, and rank 0 saves what they return. Imports no JAX."""
+"""Rank processes for ``tests/test_torch_sharded_train.py`` and
+``tests/test_torch_tp_*.py``: a world of gloo ranks on the CPU runs a
+list of jobs, each on its own ``DeviceMesh``, and rank 0 saves what they
+return. Imports no JAX.
+
+A "steps" job may override config fields (``overrides``) and the rules'
+(``rules_kw``), count its first step's dot FLOPs on each rank
+(``count``), and run in float64 throughout (``f64``, its one-device
+reference too): every float32 tensor the step makes, the model's f32
+upcasts (``.float()``) included, is made float64 (``Float64``), so that
+the comparison reads the arithmetic, not f32 rounding."""
 from __future__ import annotations
 
 import os
 import time
 import traceback
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -16,6 +25,7 @@ from repro_torch.convert import init_model
 from repro_torch.data import pipeline as pipe
 from repro_torch.models import steps as S
 from repro_torch.optim import adamw
+from repro_torch.roofline.counter import StepCost
 from repro_torch.sharding import set_rules
 from repro_torch.sharding.rules import input_shardings, make_rules, \
     opt_state_shardings, param_shardings
@@ -27,10 +37,45 @@ HP = adamw.AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
 SEQ = 32
 
 
-def cfg_of(arch):
-    return get_smoke(arch).replace(compute_dtype="float32",
+def cfg_of(arch, f64=False, **overrides):
+    dt = "float64" if f64 else "float32"
+    return get_smoke(arch).replace(compute_dtype=dt, param_dtype=dt,
                                    use_kernels=False, attn_q_chunk=8,
-                                   attn_kv_chunk=16)
+                                   attn_kv_chunk=16, **overrides)
+
+
+class Float64:
+    """Within the block every float32 tensor made is float64: the default
+    dtype, ``.float()``, and a ``dtype=float32`` argument of the creation
+    functions the model calls (patched in ``torch`` itself, so that a
+    checkpoint's recompute in the backward makes the same)."""
+    MAKERS = ("zeros", "full", "arange")
+
+    def __enter__(self):
+        def f64(fn):
+            def make(*args, **kw):
+                if kw.get("dtype") is torch.float32:
+                    kw["dtype"] = torch.float64
+                return fn(*args, **kw)
+            return make
+        self._saved = (torch.get_default_dtype(), torch.Tensor.float,
+                       {n: getattr(torch, n) for n in self.MAKERS})
+        torch.set_default_dtype(torch.float64)
+        torch.Tensor.float = torch.Tensor.double
+        for n, fn in self._saved[2].items():
+            setattr(torch, n, f64(fn))
+        return self
+
+    def __exit__(self, *exc):
+        dt, torch.Tensor.float, makers = self._saved
+        torch.set_default_dtype(dt)
+        for n, fn in makers.items():
+            setattr(torch, n, fn)
+        return False
+
+
+def _precision(f64: bool):
+    return Float64() if f64 else nullcontext()
 
 
 def batch_of(cfg, rows: int, seed: int) -> dict:
@@ -55,20 +100,31 @@ def _mesh(shape):
 
 
 class _Grads:
-    """Records the whole gradients each step's global norm reads."""
+    """Records the whole gradients each step's global norm reads: the
+    one-device step's (``adamw.global_norm``), and the sharded step's
+    shards (``steps.global_norm``) gathered whole."""
 
     def __enter__(self):
-        self.steps, self._orig = [], adamw.global_norm
+        self.steps = []
+        self._orig = adamw.global_norm, S.global_norm
 
         def rec(tensors):
             ts = list(tensors)
             self.steps.append([t.detach().clone() for t in ts])
-            return self._orig(ts)
-        adamw.global_norm = rec
+            return self._orig[0](ts)
+
+        def rec_shards(grads, params):
+            from torch.distributed.tensor import DTensor
+            self.steps.append([DTensor.from_local(
+                g.detach(), p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride()).full_tensor()
+                for g, p in zip(grads, params)])
+            return self._orig[1](grads, params)
+        adamw.global_norm, S.global_norm = rec, rec_shards
         return self
 
     def __exit__(self, *exc):
-        adamw.global_norm = self._orig
+        adamw.global_norm, S.global_norm = self._orig
         return False
 
 
@@ -83,45 +139,76 @@ def _state(params, opt) -> dict:
             "step": int(full(opt.step))}
 
 
-def steps_job(arch, mesh, microbatches=1, rows=4, n_steps=3):
+def steps_job(arch, mesh, microbatches=1, rows=4, n_steps=3, overrides=None,
+              rules_kw=None, count=False, f64=False):
     """``n_steps`` sharded steps on ``mesh`` (the same weights and global
     batches as ``one_device_job``)."""
-    cfg = cfg_of(arch)
-    rules = make_rules(_mesh(mesh))
-    model = init_model(cfg, 0, "cpu")
-    model.requires_grad_(True)
-    params, opt = S.shard_state(model, rules, cfg)
-    step = S.make_train_step(cfg, HP, microbatches, rules)
-    metrics = []
-    with _Grads() as rec, set_rules(rules):
-        for b in _batches(cfg, rows, n_steps):
-            tb = pipe.device_put_batch(b, input_shardings(rules, b))
-            metrics.append({k: float(v) for k, v in
-                            step(model, opt, tb, params).items()})
+    cfg = cfg_of(arch, f64, **(overrides or {}))
+    rules = make_rules(_mesh(mesh), **(rules_kw or {}))
+    metrics, flops = [], None
+    with _precision(f64):
+        model = init_model(cfg, 0, "cpu")
+        model.requires_grad_(True)
+        params, opt = S.shard_state(model, rules, cfg)
+        step = S.make_train_step(cfg, HP, microbatches, rules)
+        with _Grads() as rec, set_rules(rules):
+            for i, b in enumerate(_batches(cfg, rows, n_steps)):
+                tb = pipe.device_put_batch(b, input_shardings(rules, b))
+                with StepCost() if count and i == 0 else nullcontext() as c:
+                    out = step(model, opt, tb, params)
+                flops = c.flops if c is not None else flops
+                metrics.append({k: float(v) for k, v in out.items()})
     numel = {n: (params[n].to_local().numel(), params[n].numel(),
                  rules.axes_size(_axes(ps.spec)))
              for n, ps in param_shardings(rules, cfg).items()}
     numel.update({f"m/{n}": (opt.m[n].to_local().numel(), opt.m[n].numel(),
                              rules.axes_size(_axes(ps.spec)))
                   for n, ps in opt_state_shardings(rules, cfg).m.items()})
-    return {"metrics": metrics, "grads": rec.steps,
-            "state": _state(params, opt), "numel": numel}
+    return {"metrics": metrics, "grads": rec.steps, "flops": flops,
+            "state": _state(params, opt), "numel": numel,
+            "blocks": _blocks_at_offsets(params, rules, cfg)}
 
 
-def one_device_job(arch, mesh=None, microbatches=1, rows=4, n_steps=3):
+def _blocks_at_offsets(params, rules, cfg) -> bool:
+    """Whether every rank's shard of every parameter is the block of the
+    whole at its spec's offset for this rank (``local_offset``) and of
+    its shape (``local_shape``)."""
+    mesh = rules.mesh
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    ok = True
+    for n, sh in param_shardings(rules, cfg).items():
+        full = params[n].full_tensor()
+        block = full
+        for d, (at, size) in enumerate(zip(
+                rules.local_offset(full.shape, sh.spec, coord),
+                rules.local_shape(full.shape, sh.spec))):
+            block = block.narrow(d, at, size)
+        ok = ok and torch.equal(block, params[n].to_local())
+    flag = torch.tensor(int(ok))
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag)
+
+
+def one_device_job(arch, mesh=None, microbatches=1, rows=4, n_steps=3,
+                   overrides=None, rules_kw=None, count=False, f64=False):
     """The one-device steps ``steps_job`` is held against (no
-    collectives: each rank runs its share after the sharded jobs)."""
-    cfg = cfg_of(arch)
-    ref = init_model(cfg, 0, "cpu")
-    ref.requires_grad_(True)
-    ref_opt = adamw.init(dict(ref.named_parameters()))
-    ref_step = S.make_train_step(cfg, HP, microbatches)
-    metrics = []
-    with _Grads() as rec:
-        for b in _batches(cfg, rows, n_steps):
-            metrics.append({k: float(v) for k, v in ref_step(
-                ref, ref_opt, pipe.to_device(b, "cpu")).items()})
-    return {"metrics": metrics, "grads": rec.steps,
+    collectives: each rank runs its share after the sharded jobs); with
+    ``count``, its first step's dot FLOPs, which are the (1, 1) mesh's
+    (a mesh of one rank computes the one-device step)."""
+    cfg = cfg_of(arch, f64, **(overrides or {}))
+    metrics, flops = [], None
+    with _precision(f64):
+        ref = init_model(cfg, 0, "cpu")
+        ref.requires_grad_(True)
+        ref_opt = adamw.init(dict(ref.named_parameters()))
+        ref_step = S.make_train_step(cfg, HP, microbatches)
+        with _Grads() as rec:
+            for i, b in enumerate(_batches(cfg, rows, n_steps)):
+                with StepCost() if count and i == 0 else nullcontext() as c:
+                    out = ref_step(ref, ref_opt, pipe.to_device(b, "cpu"))
+                flops = c.flops if c is not None else flops
+                metrics.append({k: float(v) for k, v in out.items()})
+    return {"metrics": metrics, "grads": rec.steps, "flops": flops,
             "state": _state(dict(ref.named_parameters()), ref_opt)}
 
 
@@ -169,21 +256,27 @@ def _trainer(arch, ckpt_dir, n_steps, rules=None):
 def resume_job(arch, mesh, ckpt_dir, step, out_dir, n_steps=6,
                wait_s=240.0):
     """The elastic restart: the Trainer on ``mesh`` resumes from a copy
-    of the checkpoint of ``step`` (saved on another mesh) to ``n_steps``;
-    on rank 0 the one-device Trainer does the same from another copy.
-    Returns both final states."""
+    of the checkpoint of ``step`` (saved on another mesh) to ``n_steps``
+    in one run ("sharded"); a second one from another copy stops a step
+    short and resumes from its own checkpoint ("interrupted"); on rank 0
+    the one-device Trainer resumes from a third copy. Returns the final
+    states."""
     import shutil
     _wait_for(ckpt_dir, step, wait_s)
     src = os.path.join(ckpt_dir, f"step_{step:08d}")
+    subs = ("sharded", "interrupted", "one_device")
     if dist.get_rank() == 0:
-        for sub in ("sharded", "one_device"):
+        for sub in subs:
             shutil.copytree(src, os.path.join(out_dir, sub,
                                               f"step_{step:08d}"))
     dist.barrier()
-    rules = make_rules(_mesh(mesh))
-    res = _trainer(arch, os.path.join(out_dir, "sharded"), n_steps,
-                   rules).run()
-    out = {"sharded": _state(res["params"], res["opt"])}
+    out = {}
+    for sub, stops in (("sharded", (n_steps,)),
+                       ("interrupted", (n_steps - 1, n_steps))):
+        for n in stops:
+            res = _trainer(arch, os.path.join(out_dir, sub), n,
+                           make_rules(_mesh(mesh))).run()
+        out[sub] = _state(res["params"], res["opt"])
     if dist.get_rank() == 0:
         res = _trainer(arch, os.path.join(out_dir, "one_device"),
                        n_steps).run()

@@ -26,7 +26,12 @@ package runs here, in the same process as the port's tests.
   layer, at one chunk pair; windowed attention saves no such dot).
   Prefill and decode read the same.
 * ``run_cell`` at 16 x 16: the reference record's keys; collectives
-  equal to a count of what the port's step issues.
+  equal to a count of what the port's step issues: for serving, a count
+  from the rules (each split parameter gathered whole); for training,
+  every collective the sharded step issues, recorded where it issues
+  them (``sharding.ctx``'s gather, reduce-scatter, all-reduce and
+  all-to-all; ``tests/_dryrun_world.py``), which the counter sees at the
+  dispatcher.
 * The kernels' meta route and their noted work; ``validate``'s knobs.
 """
 import dataclasses
@@ -62,8 +67,7 @@ from repro_torch.kernels import rglru_scan as rg
 from repro_torch.launch import dryrun, specs
 from repro_torch.models import model as M
 from repro_torch.models.config import SHAPES, ShapeSpec
-from repro_torch.models.schema import ATTN_KINDS, layer_groups, leaves, \
-    named_specs
+from repro_torch.models.schema import layer_groups, leaves, named_specs
 from repro_torch.roofline import analysis as RL
 from repro_torch.roofline.counter import StepCost
 from repro_torch.sharding import rules as R
@@ -368,14 +372,14 @@ REF_RECORD_EXTRA = ("lower_s", "compile_s", "n_devices", "fits_hbm",
                     "total_dev_bytes")     # src/repro/launch/dryrun.py:98
 
 
-def _expected_collectives(arch, kind, remat):
-    """What the port's step issues at 16 x 16 (2 rows a dp rank): a
-    gather over each mesh dim that splits a parameter (DTensor gathers
-    the minor dim first, a result of 1/16 of the whole, then the whole);
-    train: one all-reduce of the f32 loss and gradients over "data", and
-    the MoE aux's two batch means a layer (again in the backward's
-    recompute under remat full); decode: each cache leaf's "model" split
-    gathered."""
+def _expected_collectives(arch, kind, remat, issued):
+    """What the port's step issues at 16 x 16 (2 rows a dp rank). Train:
+    the calls the sharded step issued (``issued``). Serving: a gather
+    over each mesh dim that splits a parameter (DTensor gathers the minor
+    dim first, a result of 1/16 of the whole, then the whole); decode:
+    each cache leaf's "model" split gathered."""
+    if kind == "train":
+        return RL.parse_collectives([tuple(c) for c in issued])
     cfg = get_smoke(arch)
     rules = R.make_rules(stand_in(MESHES["16x16"]))
     calls = []
@@ -384,12 +388,6 @@ def _expected_collectives(arch, kind, remat):
         split = sum(1 for pl in sh.placements if pl.is_shard())
         calls += [("all-gather", 16, full // 16)] * (split - 1) + \
             [("all-gather", 16, full)] * (split > 0)
-    if kind == "train":
-        calls.append(("all-reduce", 16, 4 * (1 + cfg.n_params())))
-        n_moe = sum(k in ATTN_KINDS for k in cfg.pattern()) \
-            if cfg.n_experts else 0
-        calls += [("all-reduce", 16, 4 * cfg.n_experts)] * (
-            2 * n_moe * (2 if remat == "full" else 1))
     if kind == "decode":
         cache = M.init_cache(cfg, W.PROD_ROWS, W.SEQ, "meta")
         for leaf in torch.utils._pytree.tree_leaves(cache):
@@ -403,8 +401,9 @@ def _expected_collectives(arch, kind, remat):
 @pytest.mark.parametrize("cell", W.PROD_CELLS, ids=lambda c: "-".join(
     map(str, c)))
 def test_run_cell_at_16x16(cell, world):
-    rec = next(r["record"] for r in world.result()["production_cells"]
+    res = next(r for r in world.result()["production_cells"]
                if [r["arch"], r["kind"], r["remat"]] == list(cell))
+    rec = res["record"]
     ref_roof = janalysis.Roofline(
         flops=0, bytes_hbm=0, collectives=janalysis.CollectiveStats(),
         compute_s=0, memory_s=0, collective_s=0, bound="compute").asdict()
@@ -413,7 +412,7 @@ def test_run_cell_at_16x16(cell, world):
     assert set(rec["collectives"]) == set(ref_roof["collectives"])
     assert rec["mesh"] == "16x16" and rec["n_devices"] == 256
     assert rec["compile_s"] == 0 and rec["supported"]
-    want = _expected_collectives(*cell)
+    want = _expected_collectives(*cell, res["issued"])
     assert rec["collectives"]["counts"] == dict(want.counts)
     assert rec["collectives"]["ring_bytes"] == pytest.approx(
         want.ring_bytes, rel=1e-12)
