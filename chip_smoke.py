@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port on one NVIDIA card: the G-GPU simulator's
-main path, the RecurrentGemma-2B serving path, SmolLM-360M training, the
+main path, the RecurrentGemma-2B serving path (one device, and sharded
+on the card's (1, 1) mesh), SmolLM-360M training, the
 MoE family's serving path (Mixtral-8x7B, Llama-4-Scout) with
 Qwen1.5-0.5B, and xLSTM-350M, HuBERT-XLarge's encode and Qwen2-VL-72B's
 vision prefill.
@@ -115,9 +116,14 @@ Phases, each fatal on any mismatch:
      launches equal to its steps;
      for phases 4-8b pe_execute's calls are counted by (W, L) per path
      (seven: simulator, serve, dse, fleet, compiler, mesh, legacy), each
-     path's wall time, rounds and µs per round reported, for 4-8 also the
-     device's busy share (torch.profiler over a representative piece),
-     and at every (W, L) the paths launched, pe_execute held bit for
+     path's wall time, rounds and µs per round reported, for 4-8
+     also the device's busy share (torch.profiler over a representative
+     piece); the longest pieces (the main path's xcorr, parallel_sel and
+     scalar runs, phase 6 and phase 8) run in three worker processes
+     (WORKERS: python3 chip_smoke.py --worker NAME), started once phase 3
+     is done, beside this process's phases 4, 5, 7 and 8b, each counting
+     its paths the same way and reporting its counts; and at every
+     (W, L) the paths launched, pe_execute held bit for
      bit against select_alu on random inputs (with each opcode set the
      paths gave it there) and then timed;
   9. LM golden: recurrentgemma-2b at full width, 3 layers, f32 compute,
@@ -135,6 +141,20 @@ Phases, each fatal on any mismatch:
      the plain path's tokens: the logits of every prefill and decode step
      agree within 0.3, and planted faults (the window halved, the scan fed
      bf16 inputs) must exceed it;
+  10b. sharded serving (lm_serve_sharded), on phase 10's model, in a
+     world of one (NCCL) on the card's (1, 1) mesh: (a) the sharded
+     prefill step (make_prefill_step(rules=), 4 x 3,072 seeded tokens,
+     through both kernels, rglru_scan's routes printed) and 4 sharded
+     decode steps, their logits and caches bit for bit against the
+     one-device M.prefill and M.decode_step (on a world of one every
+     collective is the identity); the kernels' launches counted with
+     the counts set to 0 just before; then phase 14's legs (c) and (d)
+     on the sharded steps; (b) rglru_scan at the per-rank shapes of a 4-
+     and a 16-way split of RecurrentGemma's channels, (4, 3072, 640) and
+     (4, 3072, 160), and flash_attention on RecurrentGemma's 5 local q
+     heads (of 10, at tp 2) reading its kv head and Mixtral-8x7B's 8 q
+     and 2 kv heads (at tp 4), each against its plain version under the
+     kernel phase's limits, timed beside its bound (and SDPA);
   11. LM training (lm_train_path): smollm-360m at full width cut to 4
      layers, f32 compute, 4 AdamW steps in 2 microbatches through
      make_train_step against src/repro_torch/train/golden_train.json,
@@ -154,7 +174,8 @@ Phases, each fatal on any mismatch:
      (data, model) mesh and sharding rules over the world: on one card a
      world of one, a (1, 1) mesh;
   11b. sharded training (lm_train_sharded): python -m
-     repro_torch.launch.train at full width for 4 steps, started alone
+     repro_torch.launch.train at full width, 16 of 32 layers, for 4
+     steps, started alone
      (it opens an NCCL world of one and closes it), its sharded Trainer
      on the (1, 1) mesh held bit for bit against the one-device Trainer
      (rules=None) over the same 4 steps: losses, parameters, both AdamW
@@ -173,9 +194,9 @@ Phases, each fatal on any mismatch:
      step's top-8 logits and the tokens against
      src/repro_torch/models/golden_moe.json, which the JAX package
      computes on the CPU (with each call's smallest router gap); then
-     Mixtral at full width cut to 4 layers, bf16 compute, six prompts
+     Mixtral at full width cut to 2 layers, bf16 compute, six prompts
      (6,144 to 45 tokens) in two waves, timed with CUDA events
-     (flash_attention 4 times per prefill wave on its tensor-core route,
+     (flash_attention 2 times per prefill wave on its tensor-core route,
      never in decode), then its plain path on the card and the kernel
      path fed the plain path's tokens: the logits of every (call, row)
      whose current token kept its experts within MOE_TOL, and every
@@ -216,12 +237,14 @@ Phases, each fatal on any mismatch:
      (python -m repro_torch.launch.dryrun) traces smollm-360m x train_4k
      and mixtral-8x7b x prefill_32k with the flash kernel (its meta
      route) on the meta device on a 16 x 16 stand-in world of 256 ranks,
-     each record printed; then MeshPlanner.validate of two one-card
+     each record printed; then MeshPlanner.validate of three one-card
      plans on the 1 x 1 mesh: (b) smollm-360m's training step at phase
-     11's (8, 2048) and (c) recurrentgemma-2b's prefill at the LM main
-     path's 4 x 3072 with the kernels on. Phases 11 and the LM main path
-     each run one more real step of those cells on the card under the
-     port's StepCost (the kernels' noted work counted); the dry run's dot
+     11's (8, 2048), (c) recurrentgemma-2b's prefill at the LM main
+     path's 4 x 3072 with the kernels on and (d) its decode step at 4
+     rows and a 3,072-slot cache. Phases 11 and 10b run one more real
+     step of those cells on the card under the port's StepCost (the
+     kernels' noted work counted; (c) and (d) through the sharded
+     serving steps on the (1, 1) mesh); the dry run's dot
      FLOPs must equal the card's, and its predicted per-rank bytes lie
      within DRYRUN_MEMORY_TOL of torch.cuda.max_memory_allocated; the
      roofline's step time is printed beside the measured one. The
@@ -300,7 +323,9 @@ from repro_torch.roofline.analysis import (PEAK_FLOPS,  # noqa: E402
 from repro_torch.roofline.counter import StepCost  # noqa: E402
 from repro_torch.sharding import ctx as shard_ctx  # noqa: E402
 from repro_torch.sharding import set_rules  # noqa: E402
-from repro_torch.sharding.rules import is_whole, make_rules  # noqa: E402
+from repro_torch.sharding.rules import (cache_shardings,  # noqa: E402
+                                        distribute, is_whole, make_rules,
+                                        param_shardings)
 from repro_torch.train import checkpoint  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainConfig  # noqa: E402
 from repro_torch.models.recurrent import linear_scan  # noqa: E402
@@ -394,8 +419,13 @@ REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
            "MoE golden run: mixtral-8x7b n_layers 32 -> 1 at f32 compute, "
            "so that the JAX package computes golden_moe.json on a CPU "
            "(17.6 GB at its peak); full width",
-           "MoE main path: mixtral-8x7b n_layers 32 -> 4 (6.07 B "
-           "parameters, 24.3 GB in f32 on the card); full width",
+           "phase 11b's launcher: smollm-360m n_layers 32 -> 16 (PERF.md "
+           "§7's third cut), after a run took 1,233.8 s on a slow host; "
+           "full width",
+           "MoE main path: mixtral-8x7b n_layers 32 -> 2 (3.16 B "
+           "parameters, 12.7 GB in f32 on the card; 4 until a run that "
+           "would have ended near 1,120 s on a slow host passed 1,050 s, "
+           "PERF.md §7's first cut); full width",
            "llama4-scout-17b-a16e n_layers 48 -> 1 (4.15 B parameters); "
            "full width",
            "the registry's cross-product cell (shared, cohort, "
@@ -1396,7 +1426,8 @@ def lm_main_path(dev) -> tuple:
     """The full model through the kernels, timed as a user runs it; then
     its plain path on the card, and the kernel path fed the plain path's
     tokens (teacher forcing), clean and with each of LM_FAULTS planted.
-    Returns the kernels' launch_counts() of the timed run."""
+    Returns the kernels' launch_counts() of the timed run, the model (for
+    phase 10b) and its profile."""
     cfg = lm_config()
     t0 = time.perf_counter()
     model = init_model(cfg, LM_SEED, dev)
@@ -1468,11 +1499,221 @@ def lm_main_path(dev) -> tuple:
               f"(max |err| {f['max']})")
     profile = lm_profile(model, cfg, prompts[:LM_SLOTS])
     del engine, plain, out, out_p, calls_p
-    leg = prefill_leg(model, cfg, dev)
-    leg["measured_ms"] = profile["prefill"]["wall_ms"]
-    del model
     torch.cuda.empty_cache()
-    return counts, leg
+    return counts, model, profile
+
+
+# -- phase 10b: the sharded serving steps on the card's (1, 1) mesh ----------
+
+SERVE_DECODE = 4                    # decode steps after the prefill
+# each kernel at the per-rank shapes of the 4-way and 16-way splits:
+# rglru_scan on RecurrentGemma-2B's 2560 channels over 4 and 16 ranks;
+# flash_attention on RecurrentGemma's 10 q heads over 2 ranks (5 a rank,
+# reading its 1 kv head) and Mixtral-8x7B's 32 q and 8 kv heads over 4 (8
+# and 2), 4 sequences each, as FLASH_PATH and FLASH_MOE
+SERVE_SCAN_SHAPES = ((4, 3072, 640), (4, 3072, 160))
+SERVE_FLASH = {"recurrentgemma_tp2": (20, 4, 3072, 3072, 256, True, 2048,
+                                      torch.bfloat16),
+               "mixtral_tp4": (32, 8, 6144, 6144, 128, True, 4096,
+                               torch.bfloat16)}
+
+
+def _placed_params(model, cfg, rules) -> dict:
+    """``model``'s parameters as DTensors placed by the rules (on the
+    (1, 1) mesh each the model's own tensor)."""
+    ps = param_shardings(rules, cfg)
+    return {n: distribute(p.detach(), ps[n])
+            for n, p in model.named_parameters()}
+
+
+def _placed_tokens(tokens, rules):
+    return distribute(tokens, rules.named(rules.activation_spec(
+        "tokens", tuple(tokens.shape))))
+
+
+def _leaves(tree) -> list:
+    return [x.to_local() if isinstance(x, DTensor) else x
+            for x in torch.utils._pytree.tree_leaves(tree)]
+
+
+def serve_vs_one_device(model, cfg, rules, dev) -> dict:
+    """(a) The sharded prefill (LM_SLOTS x LM_LENGTHS[0] seeded tokens,
+    padded for SERVE_DECODE more) and SERVE_DECODE decode steps on the
+    (1, 1) mesh, their logits and caches against the one-device
+    ``M.prefill``/``M.decode_step`` on the same inputs, bit for bit; the
+    kernels' launches and rglru_scan's routes in the sharded run."""
+    b, s = LM_SLOTS, LM_LENGTHS[0]
+    g = np.random.default_rng([LM_SEED, 10])
+    tokens = torch.from_numpy(g.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).to(dev)
+    nxt = [torch.from_numpy(g.integers(0, cfg.vocab_size, (b, 1)).astype(
+        np.int32)).to(dev) for _ in range(SERVE_DECODE)]
+    params = _placed_params(model, cfg, rules)
+    prefill = steps_mod.make_prefill_step(cfg, rules, pad_to=s + SERVE_DECODE)
+    decode = steps_mod.make_decode_step(cfg, rules)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with set_rules(rules):
+        logits, cache = prefill(model, {"tokens": _placed_tokens(tokens,
+                                                                 rules)},
+                                params)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        routes = dict(rg.ROUTE_LAUNCHES)
+        got = {"logits": [logits.to_local().clone()],
+               "prefill_cache": [t.clone() for t in _leaves(cache)]}
+        t0 = time.perf_counter()
+        for i, tok in enumerate(nxt):
+            logits, cache = decode(model, cache, _placed_tokens(tok, rules),
+                                   s + i, params)
+            got["logits"].append(logits.to_local().clone())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_DECODE
+    got["cache"] = _leaves(cache)
+    decode_counts = launch_counts()
+    with torch.no_grad():
+        logits, cache = M.prefill(model, cfg, tokens=tokens,
+                                  pad_to=s + SERVE_DECODE)
+        want = {"logits": [logits],
+                "prefill_cache": [t.clone() for t in _leaves(cache)]}
+        for i, tok in enumerate(nxt):
+            logits, cache = M.decode_step(model, cfg, cache, tok, s + i)
+            want["logits"].append(logits)
+    want["cache"] = _leaves(cache)
+    differ = {k: [i for i, (x, y) in enumerate(zip(got[k], want[k]))
+                  if not torch.equal(x, y)] for k in want}
+    n_rglru = cfg.pattern().count("rglru")
+    res = {"rows": b, "prompt_len": s, "decode_steps": SERVE_DECODE,
+           "mesh": {"data": 1, "model": 1},
+           "tensors_compared": {k: len(v) for k, v in want.items()},
+           "differ": differ, "prefill_ms": prefill_ms,
+           "decode_ms_per_step": decode_ms,
+           "prefill_launches": dict(zip(("flash_attention", "rglru_scan"),
+                                        counts[:2])),
+           "rglru_scan_routes": routes,
+           "decode_launches": [a - c for a, c in zip(decode_counts, counts)]}
+    check(all(len(got[k]) == len(want[k]) and not v
+              for k, v in differ.items()),
+          f"the sharded serving steps differ from the one-device ones: "
+          f"{differ}")
+    check(counts[:2] == (len(cfg.pattern()) - n_rglru, n_rglru)
+          and routes["ring"] == n_rglru,
+          f"the sharded prefill's launches {counts}, rglru_scan's routes "
+          f"{routes}")
+    check(res["decode_launches"] == [0, 0, 0, 0],
+          f"the sharded decode launched kernels: {res['decode_launches']}")
+    return res
+
+
+def prefill_leg(model, cfg, rules, dev) -> dict:
+    """Leg (c): the sharded prefill step (``make_prefill_step(rules=)``)
+    of the LM main path's model on LM_SLOTS x LM_LENGTHS[0] seeded
+    tokens on the (1, 1) mesh, the kernels on."""
+    g = np.random.default_rng([LM_SEED, 14])
+    tokens = torch.from_numpy(g.integers(
+        0, cfg.vocab_size, (LM_SLOTS, LM_LENGTHS[0])).astype(np.int32)).to(dev)
+    params = _placed_params(model, cfg, rules)
+    batch = {"tokens": _placed_tokens(tokens, rules)}
+    prefill = steps_mod.make_prefill_step(cfg, rules)
+
+    def step():
+        with set_rules(rules):
+            prefill(model, batch, params)
+    return counted_leg(step, model, batch)
+
+
+def decode_leg(model, cfg, rules, dev) -> dict:
+    """Leg (d): the sharded decode step (``make_decode_step(rules=)``) at
+    the dry run's decode cell: LM_SLOTS rows, a zero cache of
+    LM_LENGTHS[0] slots placed by ``cache_shardings``, the last slot
+    written; then the same step again, timed (its measured ms)."""
+    b, s = LM_SLOTS, LM_LENGTHS[0]
+    params = _placed_params(model, cfg, rules)
+    cache = torch.utils._pytree.tree_map(lambda t: distribute(
+        t, cache_shardings(rules, t)), M.init_cache(cfg, b, s, dev))
+    g = np.random.default_rng([LM_SEED, 15])
+    token = _placed_tokens(torch.from_numpy(g.integers(
+        0, cfg.vocab_size, (b, 1)).astype(np.int32)).to(dev), rules)
+    decode = steps_mod.make_decode_step(cfg, rules)
+
+    def step():
+        with set_rules(rules):
+            decode(model, cache, token, s - 1, params)
+    leg = counted_leg(step, model, cache, token)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    leg["measured_ms"] = (time.perf_counter() - t0) * 1e3
+    return leg
+
+
+def serve_kernel_shapes(dev) -> dict:
+    """(b) Each kernel at the per-rank shapes of the split serving path
+    (SERVE_SCAN_SHAPES, SERVE_FLASH) against its plain version under the
+    kernel phase's limits, timed beside its bound and, for attention,
+    scaled_dot_product_attention."""
+    out = {"rglru_scan": {}, "flash_attention": {}}
+    for j, shape in enumerate(SERVE_SCAN_SHAPES):
+        b, s, d = shape
+        a, x, h0 = _scan_inputs(shape, 60 + 3 * j, dev)
+        before = dict(rg.ROUTE_LAUNCHES)
+        got = rg.rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in rg.ROUTE_LAUNCHES.items()}
+        err = _scan_err(got, rglru_scan_ref(a, x, h0))
+        name = "x".join(map(str, shape))
+        check(err <= 1e-5 and moved == {"ring": 1, "direct": 0},
+              f"rglru_scan {name}: max |err| {err} (limit 1e-5), launches "
+              f"by route {moved} (the ring wanted)")
+        nbytes = 4 * (3 * b * s * d + 2 * b * d)
+        out["rglru_scan"][name] = {
+            "route": "ring", "max_abs_err": err,
+            "ms": _device_ms(lambda: rg.rglru_scan(a, x, h0), 20),
+            "plain_ms": _device_ms(lambda: rglru_scan_ref(a, x, h0), 1, 2),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "library_ms": None}
+    for key, case in SERVE_FLASH.items():
+        bh, bhkv, sq, skv, hd, causal, window, dtype = case
+        q, k, v = _flash_inputs(case, dev)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        err, row = _flash_errs(got, _plain_attention(q, k, v, causal,
+                                                     window))
+        check(err <= FLASH_ATOL[dtype] and row <= FLASH_ROW_RTOL[dtype],
+              f"flash_attention {key}: max |err| {err}, per row {row}")
+        del q, k, v, got
+        out["flash_attention"][key] = {
+            **_flash_timing(case, dev, 4), "shape": list(case[:7]),
+            "max_abs_err": err, "max_row_rel_err": row}
+    return out
+
+
+def lm_serve_sharded(dev, model, profile) -> dict:
+    """Phase 10b (module doc), on phase 10's model: (a) in a world of one,
+    the sharded serving steps against the one-device ones and the dry
+    run's legs (c) and (d); then (b) the kernels at the per-rank shapes.
+    Returns the phase's result with the legs."""
+    t_phase = time.perf_counter()
+    cfg = lm_config()
+    opened = launch_train.open_world(dev)
+    try:
+        rules = make_rules(make_host_mesh())
+        res = serve_vs_one_device(model, cfg, rules, dev)
+        torch.cuda.empty_cache()
+        legs = {"prefill": prefill_leg(model, cfg, rules, dev),
+                "decode": decode_leg(model, cfg, rules, dev)}
+        legs["prefill"]["measured_ms"] = profile["prefill"]["wall_ms"]
+    finally:
+        if opened:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    res["kernels_at_rank_shapes"] = serve_kernel_shapes(dev)
+    res["kernels_s"] = time.perf_counter() - t0
+    res["wall_s"] = time.perf_counter() - t_phase
+    emit({"lm_serve_sharded": res})
+    return {**res, "legs": legs}
 
 
 # the kernels' symbols, as the profiler names them: flash_attention's
@@ -1553,8 +1794,8 @@ def _check_run(run: Run, mem, info, expected, out, golden) -> None:
           f"{run.key}: {got} != golden {golden[run.key]}")
 
 
-def main_path(benches, golden, dev) -> None:
-    for run in MAIN_RUNS:
+def main_path(benches, golden, dev, runs=MAIN_RUNS) -> None:
+    for run in runs:
         prog, mem0, n, out, expected = launch(run, benches)
         cfg = make_config(run, GGPUConfig, ScalarConfig)
         before = pe_simd.LAUNCHES
@@ -2127,8 +2368,8 @@ def dse_profile(dev) -> dict:
 BENCH_SERVE = ROOT / "benchmarks" / "baselines" / "BENCH_serve.json"
 BENCH_RESILIENCE = ROOT / "benchmarks" / "baselines" / "BENCH_resilience.json"
 # The serve benchmark's fleet leg at its fast sizes: the two ends of the
-# DSE frontier over 1 and 8 CUs at 667 MHz (xcorr (16, 128), memo hits
-# after dse_path), and 3 x (copy(16, 1024), reduction(64, 256)) images.
+# DSE frontier over 1 and 8 CUs at 667 MHz (xcorr (16, 128)), and 3 x
+# (copy(16, 1024), reduction(64, 256)) images.
 FLEET_SPECS = {"cus": (1, 8), "freq_targets": (667.0,)}
 FLEET_WIDE, FLEET_NARROW, FLEET_REPS, FLEET_SEED = (16, 1024), (64, 256), 3, 1
 FLEET_EXACT = ("devices", "placement", "busy_us", "eta_us", "makespan_us",
@@ -3298,9 +3539,13 @@ def lm_train_path(dev) -> dict:
 # -- phase 11b: sharded training ----------------------------------------------
 
 SHARDED_STEPS = 4
-SHARDED_ARGV = ("--arch", TRAIN_ARCH, "--full-config", "--steps",
-                str(SHARDED_STEPS), "--seq-len", str(TRAIN_SEQ), "--batch",
-                str(TRAIN_BATCH))
+# 16 of SmolLM-360M's 32 layers, full width (32 until a run passed 1,050
+# s, PERF.md §7's third cut; phase 11's launcher stays whole, since
+# phase 14 validates its plan by the arch's name)
+SHARDED_LAYERS = 16
+SHARDED_ARGV = ("--arch", TRAIN_ARCH, "--full-config", "--layers",
+                str(SHARDED_LAYERS), "--steps", str(SHARDED_STEPS),
+                "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH))
 SHARDED_TIMED = slice(1, SHARDED_STEPS)      # steps 2-4
 
 
@@ -3472,11 +3717,12 @@ MOE_MAX_NEW = 16
 # cache rolls), the second stays far under it.
 GOLDEN_MOE_LAYERS = 1
 GOLDEN_MOE_LENGTHS = (4160, 1100, 600, 37, 900, 12)
-# The main path: full width, 4 of the 32 layers (6.07 B parameters, 24.3
-# GB in f32 on the card), bf16 compute. The first wave prefills 6,144
+# The main path: full width, 2 of the 32 layers (3.16 B parameters, 12.7
+# GB in f32 on the card; 4 until a run passed 1,050 s, PERF.md §7's first
+# cut), bf16 compute. The first wave prefills 6,144
 # tokens a row (FLASH_MOE), the second 2,002 (its capacity, 625.6 slots,
 # rounds up to 628).
-MOE_LAYERS = 4
+MOE_LAYERS = 2
 MOE_LENGTHS = (6144, 5000, 3500, 1200, 2002, 45)
 # bf16 compute, the kernel path fed the plain path's tokens. Read on an
 # H100 (PERF.md): the sound kernel path is at most 0.082 from the plain
@@ -4604,7 +4850,9 @@ DRYRUN_CLI = (("--arch", "smollm-360m", "--shape", "train_4k"),
 DRYRUN_VALIDATE = {
     "train": (TRAIN_ARCH, ("launch", TRAIN_SEQ, TRAIN_BATCH, "train"), False),
     "prefill": (LM_ARCH, ("prefill", LM_LENGTHS[0], LM_SLOTS, "prefill"),
-                True)}
+                True),
+    "decode": (LM_ARCH, ("decode", LM_LENGTHS[0], LM_SLOTS, "decode"),
+               False)}
 # predicted per-rank bytes against the card's max_memory_allocated
 DRYRUN_MEMORY_TOL = 0.10
 # smollm-360m x train_4k at 16 x 16 before the step computed its "model"
@@ -4701,21 +4949,6 @@ def train_leg(trainer, model, params, opt) -> dict:
     return counted_leg(step, model, params, opt, batch)
 
 
-def prefill_leg(model, cfg, dev) -> dict:
-    """Leg (c): the prefill step (``steps.make_prefill_step``) of the LM
-    main path's model on LM_SLOTS x LM_LENGTHS[0] seeded tokens, the
-    kernels on."""
-    g = np.random.default_rng([LM_SEED, 14])
-    tokens = torch.from_numpy(g.integers(
-        0, cfg.vocab_size, (LM_SLOTS, LM_LENGTHS[0])).astype(np.int32)).to(dev)
-    prefill = steps_mod.make_prefill_step(cfg)
-
-    def step():
-        with torch.no_grad():
-            prefill(model, {"tokens": tokens})
-    return counted_leg(step, model, tokens)
-
-
 def dryrun_path(dry: DryRun, legs: dict) -> dict:
     """Phase 14 (module doc): the dry runs' records, and each card leg
     against its validate record."""
@@ -4778,7 +5011,144 @@ def dryrun_path(dry: DryRun, legs: dict) -> dict:
     return out
 
 
+# -- phases 4, 6 and 8 in processes of their own ------------------------------
+
+# The simulator's paths are host-bound: a round is a few ms of eager
+# dispatch, the card idle ~86 % of it (PERF.md §5). Their longest pieces
+# run in worker processes (python3 chip_smoke.py --worker NAME), started
+# once the kernels are built and phase 3 has timed them, beside this
+# process's phases 4, 5, 7 and 8b, their rounds interleaved on the card
+# (each path's µs per round is printed as before). Each worker counts its
+# paths as this process does (pe_execute's count set to 0 just before a
+# path, read just after) and reports the counts, by (W, L), with the
+# opcode sets it gave the kernel there. {name: (main-path runs, whole
+# paths)}
+WORKERS = {
+    "xcorr": (("8cu/shared/xcorr", "scalar/copy", "scalar/div_int"), ()),
+    "dse": ((), ("dse",)),
+    "compiler": (("8cu/shared/parallel_sel", "scalar/vec_mul"),
+                 ("compiler",)),
+}
+WORKER_RUNS = {key for runs, _ in WORKERS.values() for key in runs}
+WORKER_TIMEOUT_S = 600
+
+
+def _shapes_out(by_shape: dict) -> list:
+    return [[W, L, n] for (W, L), n in by_shape.items()]
+
+
+def _worker_path(name: str, dev) -> dict:
+    """One whole path of a worker, counted, with its count line and its
+    busy-share line."""
+    fn, profile = {"dse": (dse_path, dse_profile),
+                   "compiler": (compiler_path, compiler_profile)}[name]
+    _, launches, shapes, wall = counted_path(fn, dev)
+    emit({f"{name}_path_counts": {
+        **_rounds_line(wall, launches), "pe_execute_launches": launches,
+        "pe_execute_launches_by_shape": {
+            f"{W}x{L}": n for (W, L), n in shapes.items()}}})
+    emit({f"{name}_profile": profile(dev)})
+    return {"launches": launches, "by_shape": _shapes_out(shapes),
+            "wall_s": wall}
+
+
+def worker_main(name: str) -> int:
+    """``--worker NAME``: one entry of WORKERS on the card, its records
+    printed as the script prints them and, last, one ``WORKER`` line of
+    its counts for the script that started it."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    pe_simd._lib()                            # built by the script
+    runs, paths = WORKERS[name]
+    out = {}
+    if runs:
+        benches = programs.all_benches()
+        golden = json.loads(GOLDEN.read_text())
+        _, launches, shapes, wall = counted_path(
+            main_path, benches, golden, dev,
+            tuple(MAIN_RUNS_BY_KEY[k] for k in runs))
+        out["simulator"] = {"launches": launches,
+                            "by_shape": _shapes_out(shapes), "wall_s": wall}
+    for path in paths:
+        out[path] = _worker_path(path, dev)
+    ops = [[W, L, [None if o is None else sorted(o) for o in sets]]
+           for (W, L), sets in PATH_OPS.items()]
+    print("WORKER " + json.dumps({"paths": out, "path_ops": ops,
+                                  "seconds": time.perf_counter() - t0}),
+          flush=True)
+    return 0
+
+
+class Workers:
+    """The WORKERS processes: ``start`` once phase 3 is done, ``join``
+    before pe_execute's shapes are timed."""
+
+    def __init__(self):
+        self.procs = {}
+
+    def start(self) -> None:
+        for name in WORKERS:
+            out, err = (tempfile.TemporaryFile(mode="w+") for _ in "oe")
+            proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                 name], stdout=out, stderr=err, cwd=str(ROOT))
+            self.procs[name] = (proc, out, err, time.perf_counter())
+
+    def join(self) -> dict:
+        """{name: its WORKER record, with its wall s}; each worker's
+        records printed here in WORKERS order, its standard error passed
+        on; fails if a worker failed."""
+        got = {}
+        for name, (proc, out, err, t0) in self.procs.items():
+            rc = proc.wait(timeout=WORKER_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            lines, errs = out.read().splitlines(), err.read()
+            out.close()
+            err.close()
+            sys.stderr.write(errs)
+            check(rc == 0, f"worker {name} failed (exit {rc}):\n"
+                  f"{errs[-4000:]}")
+            for ln in lines:
+                if ln.startswith("WORKER "):
+                    got[name] = {**json.loads(ln[len("WORKER "):]),
+                                 "wall_s": wall}
+                else:
+                    print(ln, flush=True)
+            check(name in got, f"worker {name} printed no WORKER line")
+        self.procs = {}
+        return got
+
+    def stop(self) -> None:
+        for proc, out, err, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+        self.procs = {}
+
+
+def merge_workers(got: dict, counts: dict) -> None:
+    """Add the workers' launches and by-shape counts to ``counts``
+    ({path: [launches, by_shape]}) and their opcode sets to PATH_OPS."""
+    for rec in got.values():
+        for path, c in rec["paths"].items():
+            entry = counts.setdefault(path, [0, {}])
+            entry[0] += c["launches"]
+            for W, L, n in c["by_shape"]:
+                entry[1][(W, L)] = entry[1].get((W, L), 0) + n
+        for W, L, sets in rec["path_ops"]:
+            PATH_OPS.setdefault((W, L), set()).update(
+                None if o is None else frozenset(o) for o in sets)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker_main(sys.argv[2])
     if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.is_file() \
             or not all(p.is_file() for p in (
                 GOLDEN_LM, GOLDEN_TRAIN, GOLDEN_MOE, GOLDEN_XLSTM,
@@ -4806,13 +5176,15 @@ def main() -> int:
 
     laps = [("start", time.perf_counter())]     # each phase's wall, s
     dry = DryRun()                        # phase 14's dry runs, meanwhile
+    workers = Workers()
     try:
-        return _phases(dev, laps, dry)
+        return _phases(dev, laps, dry, workers)
     finally:
+        workers.stop()
         dry.stop()
 
 
-def _phases(dev, laps, dry) -> int:
+def _phases(dev, laps, dry, workers) -> int:
     """Phases 2-14 (module doc); the last line on success."""
     t0 = time.perf_counter()
     _build.build_all(["pe_simd", "flash_attention", "rglru_scan"])
@@ -4826,6 +5198,7 @@ def _phases(dev, laps, dry) -> int:
     flash = flash_phase(dev)
     rglru = rglru_phase(dev)
     laps.append(("build_and_kernels", time.perf_counter()))
+    workers.start()                       # phases 4, 6 and 8's long pieces
 
     golden = json.loads(GOLDEN.read_text())
     benches = programs.all_benches()
@@ -4835,16 +5208,20 @@ def _phases(dev, laps, dry) -> int:
     pe_simd.pe_execute = _counted_by_shape(kernel_fn, by_shape)
     pe_simd.LAUNCHES = 0
     t0 = time.perf_counter()
+    here = tuple(r for r in MAIN_RUNS if r.key not in WORKER_RUNS)
     try:
-        main_path(benches, golden, dev)
+        main_path(benches, golden, dev, here)
         pending = fold_path(benches, golden, dev)
     finally:
         pe_simd.pe_execute = kernel_fn
-    # the main path's runs only
+    # the main path's runs only (those of this process; the workers'
+    # are added when they are joined)
     launches = pe_simd.LAUNCHES
     emit({"main_path": {"wall_s": time.perf_counter() - t0,
-                        "runs": len(ALL_RUNS), "pe_execute_launches":
-                        launches, "pe_execute_launches_by_shape": {
+                        "runs": len(here) + len(COHORT_RUNS)
+                        + len(BATCH_RUNS), "in_workers": sorted(WORKER_RUNS),
+                        "pe_execute_launches": launches,
+                        "pe_execute_launches_by_shape": {
                             f"{W}x{L}": n for (W, L), n in by_shape.items()}}})
     check(sum(by_shape.values()) == launches,
           f"pe_execute: {sum(by_shape.values())} calls on the main path but "
@@ -4863,13 +5240,6 @@ def _phases(dev, laps, dry) -> int:
     emit({"serve_checks": _rounds_line(wall, rounds)})
     emit({"serve_profile": serve_profile(benches, dev)})
     laps.append(("serving", time.perf_counter()))
-    _, dse_launches, dse_shapes, dse_wall = counted_path(dse_path, dev)
-    emit({"dse_path_counts": {
-        "wall_s": dse_wall, "pe_execute_launches": dse_launches,
-        "pe_execute_launches_by_shape": {
-            f"{W}x{L}": n for (W, L), n in dse_shapes.items()}}})
-    emit({"dse_profile": dse_profile(dev)})
-    laps.append(("dse", time.perf_counter()))
     fleet, fleet_launches, fleet_shapes, fleet_wall = counted_path(
         fleet_path, dev)
     emit({"fleet_path_counts": {
@@ -4881,15 +5251,6 @@ def _phases(dev, laps, dry) -> int:
     emit({"fleet_profile": fleet_profile(dev, fleet["devices"],
                                          fleet["trace"])})
     laps.append(("fleet", time.perf_counter()))
-    _, compiler_launches, compiler_shapes, compiler_wall = counted_path(
-        compiler_path, dev)
-    emit({"compiler_path_counts": {
-        **_rounds_line(compiler_wall, compiler_launches),
-        "pe_execute_launches": compiler_launches,
-        "pe_execute_launches_by_shape": {
-            f"{W}x{L}": n for (W, L), n in compiler_shapes.items()}}})
-    emit({"compiler_profile": compiler_profile(dev)})
-    laps.append(("compiler", time.perf_counter()))
     # phase 8b, mesh_legacy_path: the mesh legs and the legacy runs, each
     # counted on its own
     _, mesh_launches, mesh_shapes, mesh_wall = counted_path(
@@ -4904,6 +5265,23 @@ def _phases(dev, laps, dry) -> int:
             ("mesh", mesh_launches, mesh_shapes, mesh_wall),
             ("legacy", legacy_launches, legacy_shapes, legacy_wall))}})
     laps.append(("mesh_legacy", time.perf_counter()))
+    got = workers.join()
+    counts = {"simulator": [launches, by_shape]}
+    merge_workers(got, counts)
+    launches, by_shape = counts["simulator"]
+    dse_launches, dse_shapes = counts["dse"]
+    compiler_launches, compiler_shapes = counts["compiler"]
+    emit({"workers": {name: {"wall_s": rec["wall_s"],
+                             "process_s": rec["seconds"],
+                             "runs": list(WORKERS[name][0]),
+                             "paths": {p: {"launches": c["launches"],
+                                           "wall_s": c["wall_s"]}
+                                       for p, c in rec["paths"].items()}}
+                      for name, rec in got.items()},
+          "simulator_launches": launches,
+          "simulator_launches_by_shape": {
+              f"{W}x{L}": n for (W, L), n in by_shape.items()}})
+    laps.append(("workers_wait", time.perf_counter()))
     path_launches = {"simulator": launches, "serve": serve_launches,
                      "dse": dse_launches, "fleet": fleet_launches,
                      "compiler": compiler_launches, "mesh": mesh_launches,
@@ -4916,12 +5294,16 @@ def _phases(dev, laps, dry) -> int:
     laps.append(("pe_execute_shapes", time.perf_counter()))
 
     lm_golden(dev)
-    (flash_launches, rglru_launches, _, ring_launches), prefill_cost = \
+    (flash_launches, rglru_launches, _, ring_launches), lm_model, profile = \
         lm_main_path(dev)
     check(ring_launches == rglru_launches,
           f"rglru_scan: {ring_launches} of {rglru_launches} launches of the "
           "LM path on the ring route")
     laps.append(("lm", time.perf_counter()))
+    served = lm_serve_sharded(dev, lm_model, profile)
+    del lm_model
+    torch.cuda.empty_cache()
+    laps.append(("lm_serve_sharded", time.perf_counter()))
     train = lm_train_path(dev)
     emit({"lm_train_path": {"wall_s": train["wall_s"]}})
     laps.append(("lm_train", time.perf_counter()))
@@ -4935,7 +5317,7 @@ def _phases(dev, laps, dry) -> int:
     emit({"lm_families_path": families})
     laps.append(("lm_families", time.perf_counter()))
     dryrun_path(dry, {"train": train["main"]["step_cost"],
-                      "prefill": prefill_cost})
+                      **served["legs"]})
     laps.append(("dryrun", time.perf_counter()))
     emit({"phase_walls": {name: t - laps[i][1]
                           for i, (name, t) in enumerate(laps[1:])}})
@@ -4966,13 +5348,20 @@ def _phases(dev, laps, dry) -> int:
          "library_ms": flash["library_ms"], "shape": list(FLASH_PATH[:7]),
          "dtype": "bfloat16", "path_route": flash["route"],
          "path_launches": {"lm": flash_launches,
+                           "lm_serve_sharded":
+                               served["prefill_launches"]["flash_attention"],
                            "moe": moe_path["flash_launches"],
                            "hubert": families["hubert_flash_launches"],
                            "qwen2_vl": families["qwen2_vl_flash_launches"]},
          **{key: {k: flash[key][k] for k in (
              "shape", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err", "max_row_rel_err", "tflops",
-             "issued_tflops")} for key in FLASH_TIMED}},
+             "issued_tflops")} for key in FLASH_TIMED},
+         "rank_shapes": {key: {k: v[k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "max_abs_err", "max_row_rel_err")}
+             for key, v in served["kernels_at_rank_shapes"][
+                 "flash_attention"].items()}},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "routes": {"ring": "rglru_ring_kernel (TMA ring of "
@@ -4986,7 +5375,10 @@ def _phases(dev, laps, dry) -> int:
          "bound_ms": rglru["bound_ms"], "bound_by": rglru["bound_by"],
          "library_ms": None, "shape": list(RGLRU_PATH), "dtype": "float32",
          "path_route": rglru["route"], "direct_route_ms": rglru["direct_ms"],
-         "shapes": rglru["shapes"]}]})
+         "shapes": rglru["shapes"],
+         "path_launches": {"lm": rglru_launches, "lm_serve_sharded":
+                           served["prefill_launches"]["rglru_scan"]},
+         "rank_shapes": served["kernels_at_rank_shapes"]["rglru_scan"]}]})
     check(launches > 0, "the simulator's path launched no pe_execute kernel")
     check(serve_launches > 0, "the serving path launched no pe_execute")
     check(dse_launches > 0, "the DSE path launched no pe_execute")
@@ -5002,6 +5394,9 @@ def _phases(dev, laps, dry) -> int:
     check(families["qwen2_vl_flash_launches"] > 0,
           "Qwen2-VL's vision prefill launched no flash_attention")
     check(rglru_launches > 0, "the LM path launched no rglru_scan")
+    check(all(n > 0 for n in served["prefill_launches"].values()),
+          f"the sharded serving path launched no kernel: "
+          f"{served['prefill_launches']}")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

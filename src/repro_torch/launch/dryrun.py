@@ -23,15 +23,15 @@ The steps are the port's as they run today:
     microbatches: the model bound to this rank's shards, each rank's rows
     of the batch, each layer unit's parameters gathered over the dp axes
     while it runs, tensor and sequence parallelism over "model" for
-    attention, the MLPs, the MoE FFN, the embedding and the loss (the
-    recurrent mixers whole on every rank), the gradients reduce-scattered
+    attention, the MLPs, the MoE FFN, the recurrent mixers' "acts_ffn"
+    widths, the embedding and the loss, the gradients reduce-scattered
     to the shards, AdamW on the shards;
-  * prefill (or HuBERT's encode) and decode: only serving keeps the old
-    layout, the port having no sharded serving step (ROADMAP item 9d):
-    the parameters placed by the rules and gathered whole
-    (``gather_params``), computing on this rank's rows of the batch and
-    cache, split by the dp axes (a cache's "model" split gathered).
-    ``pos`` of decode is the cache's last slot.
+  * prefill (or HuBERT's encode) and decode: ``make_prefill_step``,
+    ``make_encode_step`` and ``make_decode_step`` with ``rules=``: the
+    same binding and per-layer gathers, each rank its rows, heads,
+    channels and vocabulary part, and its block of each cache leaf as
+    ``cache_shardings`` places it. ``pos`` of decode is the cache's last
+    slot.
 
 The record keeps the reference's keys: ``arch``, ``shape``, ``mesh``,
 ``supported``, ``reason``, ``Roofline.asdict()``, ``lower_s`` (here the
@@ -49,7 +49,6 @@ import traceback
 from pathlib import Path
 from typing import Optional, Union
 
-import torch
 import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
@@ -63,8 +62,7 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.roofline import analysis as RL
 from repro_torch.roofline.counter import StepCost
 from repro_torch.sharding import set_rules
-from repro_torch.sharding.rules import _tree_map, make_rules, \
-    param_shardings
+from repro_torch.sharding.rules import make_rules, param_shardings
 
 
 def open_world(n: int) -> bool:
@@ -81,47 +79,28 @@ def open_world(n: int) -> bool:
     return True
 
 
-def _own_cache(x):
-    """This rank's rows of a cache leaf: its dp split kept, any other
-    split gathered."""
-    from torch.distributed.tensor import Replicate, Shard
-    keep = tuple(pl if isinstance(pl, Shard) and pl.dim == 0
-                 else Replicate() for pl in x.placements)
-    return x.redistribute(x.device_mesh, keep).to_local()
-
-
 def build_step(cfg: ModelConfig, shape: ShapeSpec, rules,
-               microbatches: int = 1):
-    """``step(model, *input_specs)``: one step of ``shape.kind`` on this
-    rank, ``model`` the compute copy bound to the inputs' parameters:
-    to every shard for train (``steps.bind_shards``), to the whole ones
-    for serving (``steps.bind``)."""
+                microbatches: int = 1):
+    """``step(model, *input_specs)``: one sharded step of ``shape.kind``
+    on this rank, ``model`` the compute copy bound to the inputs'
+    parameters (``steps.bind_shards``)."""
     if shape.kind == "train":
         train = S.make_train_step(cfg, AdamWConfig(), microbatches, rules)
 
         def step(model, params, opt, batch):
             return train(model, opt, batch, params)
         return step
-    serve = (S.make_encode_step(cfg) if cfg.is_encoder_only
-             else S.make_prefill_step(cfg))
-
-    def rows(batch):
-        return {k: S._rows(k, v, 0, 1, rules) for k, v in batch.items()}
-
     if shape.kind == "prefill":
+        serve = (S.make_encode_step(cfg, rules) if cfg.is_encoder_only
+                 else S.make_prefill_step(cfg, rules))
+
         def step(model, params, batch):
-            S.gather_params(model, params)
-            with torch.no_grad():
-                return serve(model, rows(batch))
+            return serve(model, batch, params)
         return step
-    decode = S.make_decode_step(cfg)
+    decode = S.make_decode_step(cfg, rules)
 
     def step(model, params, cache, token, pos):
-        S.gather_params(model, params)
-        local = _tree_map(_own_cache, cache)
-        with torch.no_grad():
-            return decode(model, local, S._rows("tokens", token, 0, 1, rules),
-                          shape.seq_len - 1)
+        return decode(model, cache, token, shape.seq_len - 1, params)
     return step
 
 
@@ -162,11 +141,7 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeSpec], *,
         args = input_specs(cfg, shape, rules)
         model = LM(cfg, META)
         model.requires_grad_(shape.kind == "train")
-        if shape.kind == "train":
-            S.bind_shards(model, args[0], rules,
-                          param_shardings(rules, cfg))
-        else:
-            S.bind(model, args[0])
+        S.bind_shards(model, args[0], rules, param_shardings(rules, cfg))
         with StepCost() as cost:
             cost.hold(model, *args)
             out = step(model, *args)

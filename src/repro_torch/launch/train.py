@@ -62,6 +62,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="smollm-360m", choices=ARCH_IDS)
     ap.add_argument("--full-config", action="store_true",
                     help="the published size (default: the SMOKE config)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="the config's first N layers, widths unchanged "
+                         "(0 = all of them)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -74,6 +77,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full_config else get_smoke(args.arch)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     device = _device.resolve(args.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the CPU")

@@ -14,14 +14,21 @@ tests hold both to. Decode is plain PyTorch, as the reference computes it
 outside any Pallas kernel: ``decode_attention`` over a full cache,
 ``_decode_ring`` over a ring-buffer window cache.
 
-Inside the sharded train step (``sharding.ctx.sharded``) ``attn_block``
-runs ``attn_block_tp`` on this rank's part of the residual stream: q, k
+Inside the sharded train step (``sharding.ctx.sharded``) a layer runs
+``attn_block_tp`` on this rank's part of the residual stream: q, k
 and v from the local columns of ``wq``, ``wk`` and ``wv`` on the whole
 sequence, attention on the rank's heads where the "heads" spec splits
 them (K/V heads that do not divide the axis gathered whole, each local q
 head taking its own kv group), on whole heads where it does not (or on
 the rank's slice of the queries where it splits the sequence), and a
-row-parallel ``wo``.
+row-parallel ``wo``. The serving steps given rules run
+``attn_serve_tp``, the same layout with the caches: prefill and encode
+through ``flash_attention`` on the rank's heads when ``cfg.use_kernels``
+is set (the queries whole where the spec would split their sequence:
+the kernel masks from position 0), and decode against this rank's block
+of the cache: its kv heads, or its slots, whose partial softmaxes
+(max, sum of exponentials, weighted V) are combined over "model" by
+all-reduces.
 
 Shapes: q (B,S,H,hd); k,v (B,Skv,Hkv,hd); GQA folds H = Hkv * G.
 """
@@ -234,11 +241,9 @@ def attn_block(p: AttnMixer, x, cfg: ModelConfig, kind: str, *,
     Prefill: ``cache`` is None and the second result is the (k, v) the
     caller turns into a decode cache. Decode: ``cache`` is given and x is
     (B,1,d); the new k, v are written into it in place (the reference
-    returns an updated copy) and the same cache is returned. In the
-    sharded train step: (this rank's part of the output, None).
+    returns an updated copy) and the same cache is returned. (A sharded
+    step runs ``attn_block_tp`` or ``attn_serve_tp``.)
     """
-    if cache is None and ctx.sharded() is not None:
-        return attn_block_tp(p, x, cfg, kind, positions), None
     return _attn_block(p, x, cfg, kind, positions, cache, cache_pos)
 
 
@@ -296,12 +301,7 @@ def attn_block_tp(p: AttnMixer, x, cfg: ModelConfig, kind: str, positions):
         k = _whole_kv(k, col_k, heads is not None, kv_shape)
         v = _whole_kv(v, col_v, heads is not None, kv_shape)
         if heads == 2:                  # each local q head's kv group
-            hq, g = h // tp, h // hkv
-            if hq % g == 0:
-                k, v = (t.narrow(2, r * hq // g, hq // g) for t in (k, v))
-            else:
-                idx = torch.arange(r * hq, (r + 1) * hq, device=x.device) // g
-                k, v = (t.index_select(2, idx) for t in (k, v))
+            k, v = _kv_groups(k, v, h, r, tp)
 
     q_off = r * (s // tp) if heads == 1 else 0
     q, k = _rope_qk(q, k, positions, cfg, q_off)
@@ -312,6 +312,138 @@ def attn_block_tp(p: AttnMixer, x, cfg: ModelConfig, kind: str, positions):
     if heads != 2:                      # this rank's rows of wo
         o = ctx.split(o, 2, st.model)
     return row_out(o @ p.wo.w.to(cdt(cfg)), p.wo.b, cfg)
+
+
+def _kv_groups(k, v, h: int, r: int, tp: int):
+    """The kv heads rank ``r``'s ``h / tp`` q heads read, of whole K and V
+    (B, S, Hkv, hd): their groups in order where the local q heads cover
+    whole groups, the one group where they all read one (a GQA ratio of
+    h / tp, as ``flash_attention`` folds it), else one kv head per q
+    head."""
+    hq, g = h // tp, h // k.shape[2]
+    if hq % g == 0:
+        return tuple(t.narrow(2, r * hq // g, hq // g) for t in (k, v))
+    if g % hq == 0:
+        return tuple(t.narrow(2, r * hq // g, 1) for t in (k, v))
+    idx = torch.arange(r * hq, (r + 1) * hq, device=k.device) // g
+    return tuple(t.index_select(2, idx) for t in (k, v))
+
+
+def attn_serve_tp(p: AttnMixer, x, cfg: ModelConfig, kind: str, positions,
+                  cache: Optional[KVCache], cache_pos: Optional[int]):
+    """A serving step's attention on this rank's part ``x`` (B, s, d) of
+    the residual stream (module doc). Prefill and encode (no ``cache``):
+    (this rank's part of the output, the whole sequence's (k, v) on this
+    rank's kv heads where attention ran on them, else on all). Decode:
+    (the output, ``cache``, this rank's block, written in place). Runs
+    whole on every rank (``ctx.whole_block``, the cache gathered) where
+    the rules do not split ``wq``'s columns and ``wo``'s rows."""
+    st = ctx.sharded()
+    ax = st.model
+    if ctx.split_dim(p.wq.w) != 1 or ctx.split_dim(p.wo.w) != 0:
+        whole = None if cache is None else KVCache(
+            *(ctx.whole_leaf(t) for t in cache))
+        out, kv = ctx.whole_block(p, lambda xw: _attn_block(
+            p, xw, cfg, kind, positions, whole, cache_pos), x)
+        if cache is not None:
+            for t, w in zip(cache, kv):
+                dim = getattr(t, "model_dim", None)
+                t.copy_(w if dim is None else ctx.local_slice(w, dim, ax))
+            kv = cache
+        return out, kv
+    tp, r = ax.n, ax.rank
+    b, s_loc, _ = x.shape
+    s = s_loc * tp if st.seq else s_loc
+    hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    window = cfg.window if kind in ("swa", "local") else 0
+    scale = hd ** -0.5
+    hx = ctx.whole_seq(apply_norm(seq_norm(p.norm), x, cfg), grad_sum=True)
+    q = linear(p.wq, hx, cfg)
+    heads = st.model_dim("heads", (b, s, h, hd))
+    if heads == 1 and (cache is not None or cfg.use_kernels):
+        heads = None                    # the kernel masks from position 0
+    if cache is not None and getattr(cache.k, "model_dim", None) == 1:
+        heads = None                    # every rank its slots of each head
+    if heads == 2:
+        q = q.reshape(b, s, h // tp, hd)
+    else:
+        q = ctx.gather(q, 2, ax, False).reshape(b, s, h, hd)
+    kv = []
+    for lin in (p.wk, p.wv):
+        t = linear(lin, hx, cfg)
+        if ctx.split_dim(lin.w) == 1:
+            t = ctx.gather(t, 2, ax, False) if heads != 2 or hkv % tp \
+                else t.reshape(b, s, hkv // tp, hd)
+        kv.append(t.reshape(b, s, -1, hd))
+    k, v = kv
+    q_off = r * (s // tp) if heads == 1 else 0
+    if heads == 1:
+        q = ctx.local_slice(q, 1, ax)
+    q, k = _rope_qk(q, k, positions, cfg, q_off)
+    if cache is not None:
+        out = _decode_tp(q, k, v, cache, cache_pos, window, scale, h)
+        kv = cache
+    else:
+        kv = KVCache(k, v)
+        if heads == 2 and k.shape[2] == hkv:
+            k, v = _kv_groups(k, v, h, r, tp)
+        if cfg.use_kernels:
+            out = kops.flash_attention(q, k, v, causal=cfg.causal,
+                                       window=window, scale=scale)
+        else:
+            out = _attend(q, k, v, cfg, window, scale, q_off)
+    o = out.reshape(b, q.shape[1], -1).to(cdt(cfg))
+    if heads == 1:                      # the queries' slices, whole again
+        o = ctx.gather(o, 1, ax, False)
+    if heads != 2:                      # this rank's rows of wo
+        o = ctx.split(o, 2, ax)
+    return row_out(o @ p.wo.w.to(cdt(cfg)), p.wo.b, cfg), kv
+
+
+def _decode_tp(q, k, v, cache: KVCache, pos: int, window: int,
+               scale: float, h: int):
+    """One decode step's attention against this rank's block of the
+    cache (its ``model_dim``: 2 its kv heads, 1 its slots, None all of
+    it): the new k, v (B,1,·,hd), on the rank's kv heads or on all,
+    written where this rank holds their slot, and the softmax over the
+    rank's slots combined over "model" where the slots are split. q:
+    (B,1,Hq,hd), the rank's q heads or all ``h`` (all where the slots
+    are split: the combine sums the ranks' shares of each head); returns
+    (B,1,Hq,hd)."""
+    ax = ctx.sharded().model
+    lay = getattr(cache.k, "model_dim", None)
+    c = cache.k.shape[1]
+    hkv = cache.k.shape[2]
+    if lay == 2 and k.shape[2] != hkv:
+        k, v = (ctx.local_slice(t, 2, ax) for t in (k, v))
+    base = ax.rank * c if lay == 1 else 0
+    total = c * ax.n if lay == 1 else c
+    slot = pos if window == 0 else pos % total
+    if base <= slot < base + c:
+        at = slot - base
+        cache.k[:, at:at + 1] = k.to(cache.k.dtype)
+        cache.v[:, at:at + 1] = v.to(cache.v.dtype)
+    ck, cv = cache
+    if q.shape[2] != h and lay is None:     # the local q heads' kv groups
+        ck, cv = _kv_groups(ck, cv, h, ax.rank, ax.n)
+    idx = base + torch.arange(c, device=q.device)
+    if window == 0:
+        valid = idx <= pos
+    else:
+        valid = (pos - (pos - idx) % window) >= 0
+    qf = _fold_gqa(q, ck.shape[2]).float()
+    if lay != 1:
+        return _softmax_out(qf, KVCache(ck, cv), valid, scale)
+    import torch.distributed as dist
+    bsz, _, g_kv, g, hd = qf.shape
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, ck.float()) * scale
+    sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    m = ctx.all_reduce(sc.amax(dim=-1, keepdim=True), ax, dist.ReduceOp.MAX)
+    pr = torch.exp(sc - m)
+    den = ctx.all_reduce(pr.sum(dim=-1), ax)
+    out = ctx.all_reduce(torch.einsum("bhgqk,bkhd->bhgqd", pr, cv.float()),
+                         ax) / den[..., None]
+    return out.movedim(3, 1).reshape(bsz, 1, g_kv * g, hd)
 
 
 def _attn_block(p: AttnMixer, x, cfg: ModelConfig, kind: str, positions,

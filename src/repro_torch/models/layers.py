@@ -108,9 +108,14 @@ def apply_norm(p: Norm, x, cfg: ModelConfig):
 def rms_head_norm(scale, x, eps: float = 1e-6):
     """Per-head RMS norm of the mLSTM's output: computed in f32, returned
     in ``x``'s dtype."""
+    return (head_rms(x, eps) * scale.float()).to(x.dtype)
+
+
+def head_rms(x, eps: float = 1e-6):
+    """``x`` over its RMS along the last dim, in f32 (``rms_head_norm``
+    before its scale)."""
     xf = x.float()
-    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * scale.float()).to(x.dtype)
+    return xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
 
 
 def linear(p: Linear, x, cfg: ModelConfig):

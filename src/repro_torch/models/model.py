@@ -33,12 +33,19 @@ In the sharded train step (``sharding.ctx.sharded``) each pattern unit's
 parameters are gathered over the dp axes inside the unit's body
 (``ctx.gathered``), so a checkpoint's recompute gathers them again, and
 the residual stream is this rank's part of the sequence where the "acts"
-spec splits it. Attention, the MLPs, the MoE FFN, the embedding and the
-loss compute this rank's "model" parts; the recurrent mixers run whole on
-every rank on the gathered sequence (``ctx.whole_block``; their "acts_ffn"
-split is ROADMAP item 9d). Under remat ``none`` autograd keeps each
-unit's gathered weights (its "model" part, whole over the dp axes) for
-the backward.
+spec splits it. Attention, the MLPs, the MoE FFN, the recurrent mixers
+(their "acts_ffn" widths), the embedding and the loss compute this
+rank's "model" parts. Under remat ``none`` autograd keeps each unit's
+gathered weights (its "model" part, whole over the dp axes) for the
+backward.
+
+The serving steps given rules (``models.steps``) run ``forward`` in the
+same context in prefill, decode and encode mode: each layer's dp gather
+around it, the same "model" parts, vocab-split logits, and each layer's
+cache this rank's block of what ``rules.cache_shardings`` lays out: a
+KV cache split over its kv heads where they divide the axis, else over
+its slots (a window layer's ring-buffer slots included), and the mLSTM
+memory by the same "kv_cache" rule; the other recurrent states whole.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import _device
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import AttnMixer, KVCache, attn_block, \
-    remat_chunk
+    attn_block_tp, attn_serve_tp, remat_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Embed, Linear, Norm, apply_mlp, \
     apply_norm, cdt, cross_entropy, embed_tokens, linear, seq_norm, \
@@ -69,6 +76,8 @@ _MIXERS = {"rglru": rec.RGLRUMixer, "mlstm": rec.MLSTMMixer,
            "slstm": rec.SLSTMMixer}
 _BLOCKS = {"rglru": rec.rglru_block, "mlstm": rec.mlstm_block,
            "slstm": rec.slstm_block}
+_BLOCKS_TP = {"rglru": rec.rglru_block_tp, "mlstm": rec.mlstm_block_tp,
+              "slstm": rec.slstm_block_tp}
 
 
 class Block(nn.Module):
@@ -146,6 +155,20 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, device=None):
             for kind in cfg.pattern()]
 
 
+def prefill_cache_meta(cfg: ModelConfig, batch: int, seq: int,
+                       pad_to: int = 0):
+    """The caches ``prefill`` returns for ``batch`` prompts of ``seq``
+    tokens, as meta tensors (their shapes and dtypes): a window layer's
+    ring of ``window`` slots, a full-attention cache of max(seq,
+    ``pad_to``), the recurrent states."""
+    meta = torch.device("meta")
+    return [_attn_cache_init(cfg, kind, batch, cfg.window if kind in (
+        "swa", "local") and cfg.window else max(seq, pad_to), meta)
+        if kind in ATTN_KINDS else
+        _mixer_cache_init(cfg, kind, batch, seq, meta)
+        for kind in cfg.pattern()]
+
+
 def _prefill_attn_cache(cfg: ModelConfig, kind: str, kv: KVCache,
                         pad_to: int = 0) -> KVCache:
     """Turn prefill-computed (k, v) into a decode cache: a window cache
@@ -178,10 +201,9 @@ def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
                  cache_pos, mode: str, prefill_pad: int = 0):
     """One layer. Returns (x, new_cache, aux): aux is the MoE FFN's
     load-balancing loss, a 0-dim f32 zero without one."""
-    if block.kind in _BLOCKS and ctx.sharded() is not None:
-        fn = _BLOCKS[block.kind]
-        out, c_new = ctx.whole_block(block.mixer, lambda xw: fn(
-            block.mixer, xw, cfg, None)[0], x), None
+    if ctx.sharded() is not None:
+        out, c_new = _mixer_tp(block, x, cfg, cache, positions, cache_pos,
+                               mode, prefill_pad)
     elif block.kind in _BLOCKS:
         out, c_new = _BLOCKS[block.kind](block.mixer, x, cfg, cache)
     else:
@@ -198,6 +220,35 @@ def _apply_block(block: Block, x, cfg: ModelConfig, cache, positions,
     elif block.mlp is not None:
         x = shard_hint(x + apply_mlp(block.mlp, x, cfg), "acts")
     return x, c_new, aux
+
+
+def _mixer_tp(block: Block, x, cfg: ModelConfig, cache, positions,
+              cache_pos, mode: str, prefill_pad: int):
+    """A layer's mixer in a sharded step: (this rank's part of its
+    output, its cache laid out for this rank, or None in train and
+    encode mode)."""
+    keep = mode in ("prefill", "decode")
+    if block.kind in _BLOCKS_TP:
+        return _BLOCKS_TP[block.kind](block.mixer, x, cfg, cache, keep)
+    if mode == "train":
+        return attn_block_tp(block.mixer, x, cfg, block.kind, positions), \
+            None
+    out, kv = attn_serve_tp(block.mixer, x, cfg, block.kind, positions,
+                            cache, cache_pos)
+    if mode != "prefill":
+        return out, kv if keep else None
+    kv = _prefill_attn_cache(cfg, block.kind, kv, prefill_pad)
+    # this rank's block of the cache: its kv heads (kept where attention
+    # ran on them), else its slots, else all of it
+    st = ctx.sharded()
+    hkv = cfg.n_kv_heads
+    dim = st.model_dim("kv_cache", (kv.k.shape[0], kv.k.shape[1], hkv,
+                                    cfg.hd))
+    if kv.k.shape[2] != hkv:            # the rank's kv heads already
+        for t in kv:
+            t.model_dim = dim
+        return out, kv
+    return out, KVCache(*(ctx.leaf_part(t, dim) for t in kv))
 
 
 # The matrix products a ``dots`` checkpoint keeps: every projection of a
@@ -299,10 +350,20 @@ def forward(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
             "flash_attention and rglru_scan have no backward (nor have the "
             "JAX package's Pallas kernels); train with use_kernels=False "
             "(ROADMAP.md, queue item 11)")
-    st = ctx.sharded() if mode == "train" else None
-    src = "whole"       # in the sharded step: what each rank holds
+    st = ctx.sharded()
+    src = "whole"       # in a sharded step: what each rank holds
+    b, s = (embeds if embeds is not None else tokens).shape[:2]
+    if st is not None:
+        st.begin_stream((b, s, cfg.d_model))
     with ctx.gathered([model.frontend_proj, model.embed] if st else []):
-        if embeds is not None:
+        if embeds is not None and st is not None:
+            # this rank's part of the stream only (the frontend's weight
+            # read by a sequence part: its gradient summed over "model")
+            e = embeds.to(cdt(cfg))
+            if st.seq:
+                e, src = ctx.split(e, 1, st.model), "local"
+            x = e @ ctx.seq_param(model.frontend_proj.w).to(cdt(cfg))
+        elif embeds is not None:
             x = linear(model.frontend_proj, embeds.to(cdt(cfg)), cfg)
         elif model.embed is None:
             # the reference fails here too, on its missing "embed" leaf
@@ -313,13 +374,10 @@ def forward(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
             if ctx.split_dim(model.embed.w) == 0:
                 src = "partial"     # a vocab-parallel lookup
     if positions is None:
-        base = torch.arange(x.shape[1], device=x.device)[None, :]
+        base = torch.arange(s, device=x.device)[None, :]
         if mode == "decode":
             base = base + cache_pos
-        positions = base.expand(*((3,) if cfg.mrope else ()), x.shape[0],
-                                -1)
-    if st is not None:
-        st.begin_stream(x.shape)
+        positions = base.expand(*((3,) if cfg.mrope else ()), b, -1)
     x = shard_hint(x, "acts", src)
     if mode == "train":
         x, aux = _train_stack(model, cfg, x, positions)
@@ -329,11 +387,13 @@ def forward(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
     new_cache = []
     for li, block in enumerate(model.layers):
         ci = cache[li] if cache is not None else None
-        x, c_new, a = _apply_block(block, x, cfg, ci, positions, cache_pos,
-                                   mode, prefill_pad)
+        with ctx.gathered([block] if st else []):
+            x, c_new, a = _apply_block(block, x, cfg, ci, positions,
+                                       cache_pos, mode, prefill_pad)
         aux = aux + a
         new_cache.append(c_new)
-    x = apply_norm(model.final_norm, x, cfg)
+    with ctx.gathered([model.final_norm] if st else []):
+        x = apply_norm(seq_norm(model.final_norm), x, cfg)
     return x, (None if mode == "encode" else new_cache), aux
 
 
@@ -378,7 +438,22 @@ def chunked_lm_loss(model: LM, cfg: ModelConfig, x, labels,
 
 
 def lm_logits(model: LM, cfg: ModelConfig, x):
-    return shard_hint(unembed(model, x, cfg), "logits")
+    """The logits of ``x``; in a sharded step, of each of its rows and
+    positions, this rank's part of the vocabulary where the rules split
+    the unembedding."""
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    with ctx.gathered([head] if ctx.sharded() else []):
+        return shard_hint(unembed(model, x, cfg), "logits")
+
+
+def _last_token(x):
+    """The stream's last position (B, 1, d); in a sharded step whose
+    stream is split along the sequence, gathered from the rank that
+    holds it."""
+    st = ctx.sharded()
+    if st is not None and st.seq:
+        return ctx.gather(x[:, -1:], 1, st.model, False)[:, -1:]
+    return x[:, -1:, :]
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch):
@@ -419,7 +494,7 @@ def prefill(model: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
     x, cache, _ = forward(model, cfg, tokens=tokens, embeds=embeds,
                           positions=positions, mode="prefill",
                           prefill_pad=pad_to)
-    return lm_logits(model, cfg, x[:, -1:, :])[:, 0, :], cache
+    return lm_logits(model, cfg, _last_token(x))[:, 0, :], cache
 
 
 def decode_step(model: LM, cfg: ModelConfig, cache, token, pos: int):
@@ -445,4 +520,4 @@ def encode(model: LM, cfg: ModelConfig, embeds):
     with torch.set_grad_enabled(wants_grad):
         x, _, _ = forward(model, cfg, embeds=embeds,
                           mode="train" if wants_grad else "encode")
-        return lm_logits(model, cfg, x)
+        return lm_logits(model, cfg, ctx.whole_seq(x, grad_sum=False))

@@ -19,14 +19,38 @@ in plain XLA (no Pallas kernel). Under autograd each mLSTM chunk and each
 sLSTM block is recomputed in the backward (the reference's
 ``jax.checkpoint`` on them). States live in the layer cache.
 
-In the sharded train step these blocks split nothing over "model": each
-runs whole on every rank, on its layer unit's parameters gathered whole
-over "model" and on the sequence gathered whole, and returns the rank's
-slice of the stream (``models.model``, ``sharding.ctx.whole_block``);
-the "acts_ffn" split of their widths is ROADMAP item 9d.
+In a sharded step (``sharding.ctx.sharded``: training, and the serving
+steps given rules) each block computes this rank's "model" part of its
+"ffn" widths (the "acts_ffn" split), as the reference's parameter specs
+lay them out (``*_block_tp``):
+  * RG-LRU: ``wx`` and ``wg`` column-parallel on the whole sequence, the
+    conv, Λ and the scan on the rank's dr / tp channels (the
+    ``rglru_scan`` kernel at (B, S, dr / tp)); ``lru.wa`` and ``lru.wi``
+    hold rows, so their partial sums are reduce-scattered to the rank's
+    channels before the gates; ``wo`` row-parallel.
+  * mLSTM: ``wup``'s fused x|gate columns paired (``ctx.swiglu_pairs``),
+    the conv on the rank's channels, ``wq``/``wk``/``wv``/``wif``
+    row-parallel: their partial sums reduce-scattered to the rank's
+    heads where the heads divide the axis, all-reduced otherwise (the
+    matrix memory then runs whole on every rank, and each rank keeps
+    its channels of the head-normed output); ``wdown`` row-parallel.
+  * sLSTM: ``wg`` column-parallel and gathered, since the recurrence
+    couples heads: ``slstm_step`` splits (B, H, 4 hd) reshaped to (B, 4
+    d) into i|f|z|o, so each gate of a channel reads other heads'
+    h_{t-1}, and a per-head split would need a collective every step.
+    The recurrence runs whole on every rank; ``wo`` column-parallel.
+A block whose weights the rules leave unsplit runs whole on every rank
+(``ctx.whole_block``). In a serving step the recurrent states of rank <
+4 stay whole over "model" (a rank's new channels gathered), and the
+mLSTM's (B, H, hd, hd) memory is this rank's block by the "kv_cache"
+rule (``rules.cache_shardings``): its first hd dim where hd divides the
+axis, which the decode step's ``q @ C`` reads as a partial sum over
+the ranks (all-reduced) and its update writes from the rank's slice of
+k.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,9 +60,10 @@ from torch import nn
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.models.attention import remat_chunk
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.ctx import shard_hint
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import ONE, shard_hint
 from repro_torch.models.layers import Linear, Norm, apply_norm, cdt, \
-    linear, param, rms_head_norm
+    head_rms, linear, param, rms_head_norm, row_out, seq_norm
 
 LOG_EPS = -30.0
 C_LRU = 8.0
@@ -120,11 +145,14 @@ class MLSTMMixer(nn.Module):
         self.wdown = Linear(de, d, cfg, device)
 
 
-def _mlstm_chunk(carry, inp):
+def _mlstm_chunk(carry, inp, ax=ONE):
     """One chunk of the chunkwise-parallel stabilised mLSTM.
 
     carry: (C, n, m) with C (B,H,hd,hd); inp: q, k, v (B,c,H,hd) with k
-    pre-scaled by hd^-0.5, logi/logf (B,c,H). All f32.
+    pre-scaled by hd^-0.5, logi/logf (B,c,H). All f32. With ``ax`` of
+    more than one rank, C is this rank's block of its first hd dim: the
+    product ``q @ C`` is summed over ``ax`` and the update writes the
+    rank's rows from its slice of k.
     """
     C_p, n_p, m_p = carry
     q, k, v, logi, logf = inp
@@ -143,7 +171,12 @@ def _mlstm_chunk(carry, inp):
     s_qk = torch.einsum("bthd,bshd->btsh", q, k)              # (B,t,s,H)
     intra = torch.einsum("btsh,bshd->bthd", s_qk * dmat, v)
     w_inter = torch.exp(fc + m_p[:, None] - m_t)              # (B,c,H)
-    inter = torch.einsum("bthd,bhde->bthe", q, C_p) * w_inter[..., None]
+    if ax.n == 1:
+        inter = torch.einsum("bthd,bhde->bthe", q, C_p)
+    else:
+        inter = ctx.all_reduce(torch.einsum(
+            "bthd,bhde->bthe", ctx.local_slice(q, 3, ax), C_p), ax)
+    inter = inter * w_inter[..., None]
     n_t = (w_inter[..., None] * n_p[:, None]
            + torch.einsum("btsh,bshd->bthd", dmat, k))
     qn = torch.einsum("bthd,bthd->bth", q, n_t).abs()
@@ -154,16 +187,18 @@ def _mlstm_chunk(carry, inp):
     m_new = m_t[:, -1]                                        # (B,H)
     w_c = torch.exp(ftot[:, None] - fc + logi - m_new[:, None])  # (B,s,H)
     decay = torch.exp(ftot + m_p - m_new)
+    kc = k if ax.n == 1 else ctx.local_slice(k, 3, ax)
     C_new = (decay[..., None, None] * C_p
-             + torch.einsum("bsh,bshd,bshe->bhde", w_c, k, v))
+             + torch.einsum("bsh,bshd,bshe->bhde", w_c, kc, v))
     n_new = (decay[..., None] * n_p
              + torch.einsum("bsh,bshd->bhd", w_c, k))
     return (C_new, n_new, m_new), h
 
 
-def mlstm_scan(q, k, v, logi, logf, state: MLSTMState, chunk: int):
+def mlstm_scan(q, k, v, logi, logf, state: MLSTMState, chunk: int,
+               ax=ONE):
     """q, k, v: (B,S,H,hd) f32; logi/logf: (B,S,H) f32. Returns (h,
-    (C, n, m)).
+    (C, n, m)). ``ax``: C split over it (``_mlstm_chunk``).
 
     S is padded to a chunk multiple with the i-gate at 2·LOG_EPS (no
     state contribution) and the f-gate at 1 (state kept); the padded
@@ -176,10 +211,12 @@ def mlstm_scan(q, k, v, logi, logf, state: MLSTMState, chunk: int):
         logi = F.pad(logi, (0, 0, 0, pad), value=2 * LOG_EPS)
         logf = F.pad(logf, (0, 0, 0, pad))
     carry = (state.c, state.n, state.m)
+    step = _mlstm_chunk if ax.n == 1 else functools.partial(_mlstm_chunk,
+                                                            ax=ax)
     hs = []
     for i in range(0, s + pad, ck):
         sl = slice(i, i + ck)
-        carry, h = remat_chunk(_mlstm_chunk, carry,
+        carry, h = remat_chunk(step, carry,
                                (q[:, sl], k[:, sl], v[:, sl], logi[:, sl],
                                 logf[:, sl]))
         hs.append(h)
@@ -215,6 +252,94 @@ def mlstm_block(p: MLSTMMixer, x, cfg: ModelConfig,
     hs = rms_head_norm(p.onorm.scale.reshape(h, hd), hs.to(cdt(cfg)))
     out = hs.reshape(b, s, de) * F.silu(g)
     return linear(p.wdown, out, cfg), MLSTMState(c_f, n_f, m_f, conv_state)
+
+
+def mlstm_block_tp(p: MLSTMMixer, x, cfg: ModelConfig,
+                   state: Optional[MLSTMState], keep_state: bool):
+    """The mLSTM block of this rank's part ``x`` of the residual stream in
+    a sharded step (module doc): (this rank's part of the output, the
+    new state laid out for the cache when ``keep_state``, else None).
+    With a ``state`` (decode) q, k, v and the gates are whole and the
+    memory is the cache's block."""
+    st = ctx.sharded()
+    ax = st.model
+    if not (ctx.split_dim(p.wup.w) == 1 and ctx.split_dim(p.wq.w) == 0
+            and ctx.split_dim(p.wdown.w) == 0):
+        return _whole(p, mlstm_block, x, cfg, state, keep_state)
+    de = 2 * cfg.d_model
+    h = cfg.n_heads
+    hd = de // h
+    dt = cdt(cfg)
+    hcol = ctx.whole_seq(apply_norm(seq_norm(p.norm), x, cfg),
+                         grad_sum=True)
+    b, s, _ = hcol.shape
+    u, g = (hcol @ ctx.swiglu_pairs(p.wup.w.to(dt), ax)).chunk(2, dim=-1)
+    u, conv_state = causal_conv(p.conv, u, None if state is None else
+                                ConvState(ctx.local_slice(state.conv.buf,
+                                                          2, ax)))
+    u = F.silu(u)
+    # the row-parallel products' partial sums: to this rank's heads where
+    # they divide the axis (train and prefill), else whole
+    local = state is None and h % ax.n == 0
+    nh = h // ax.n if local else h
+
+    def heads(lin, lead):
+        part = linear(lin, u, cfg).reshape(b, s, *lead)
+        return (ctx.scatter_sum(part, part.ndim - 1, ax) if local
+                else ctx.reduce_sum(part, ax)).float()
+    q, k, v = (heads(lin, (h * hd,)).reshape(b, s, nh, hd)
+               for lin in (p.wq, p.wk, p.wv))
+    gates = heads(p.wif, (2, h))
+    lay, cax = None, ONE
+    if state is None:
+        mem = mlstm_state_init(b, nh, hd, 0, x.device)
+    else:
+        lay = getattr(state.c, "model_dim", None)
+        cax = ax if lay == 2 else ONE
+        mem = state._replace(c=state.c if lay == 2
+                             else ctx.whole_leaf(state.c))
+    hs, (c_f, n_f, m_f) = mlstm_scan(q, k * hd ** -0.5, v, gates[:, :, 0],
+                                     F.logsigmoid(gates[:, :, 1]), mem,
+                                     cfg.mlstm_chunk, cax)
+    hs = hs.to(dt)
+    if local:
+        y = rms_head_norm(p.onorm.scale.reshape(nh, hd), hs)
+    else:
+        # whole heads: this rank's channels of the normed output
+        y = ctx.split(head_rms(hs).reshape(b, s, de), 2, ax)
+        y = (y * p.onorm.scale.float()).to(dt)
+    out = y.reshape(b, s, -1) * F.silu(g)
+    out = row_out(out @ p.wdown.w.to(dt), p.wdown.b, cfg)
+    if not keep_state:
+        return out, None
+    if local:
+        c_f, n_f, m_f = (ctx.all_gather(t, 1, ax) for t in (c_f, n_f, m_f))
+    if state is None:
+        lay = st.model_dim("kv_cache", tuple(c_f.shape))
+    if cax.n > 1:
+        c_f.model_dim = lay             # the cache's block, updated
+    else:
+        c_f = ctx.leaf_part(c_f, lay)
+    return out, MLSTMState(c_f, n_f, m_f, ConvState(
+        ctx.all_gather(conv_state.buf, 2, ax)))
+
+
+def _whole(p, block, x, cfg: ModelConfig, state, keep_state: bool):
+    """``block`` run whole on every rank (``ctx.whole_block``), where the
+    rules leave its weights unsplit: its state whole, an mLSTM memory
+    gathered from the cache's block and cut back to it."""
+    lay = None
+    if isinstance(state, MLSTMState):
+        lay = getattr(state.c, "model_dim", None)
+        state = state._replace(c=ctx.whole_leaf(state.c))
+    out, new = ctx.whole_block(p, lambda xw: block(p, xw, cfg, state), x)
+    if not keep_state:
+        return out, None
+    if isinstance(new, MLSTMState):
+        if state is None:
+            lay = ctx.sharded().model_dim("kv_cache", tuple(new.c.shape))
+        new = new._replace(c=ctx.leaf_part(new.c, lay))
+    return out, new
 
 
 # ---------------------------------------------------------------------------
@@ -282,10 +407,19 @@ def slstm_block(p: SLSTMMixer, x, cfg: ModelConfig,
                 state: Optional[SLSTMState]):
     """The sequential sLSTM with a per-head block-diagonal recurrence.
     x: (B,S,d). Returns (out, new_state)."""
-    b, s, d = x.shape
     hx = apply_norm(p.norm, x, cfg)
     gx = (linear(p.wg, hx, cfg) + p.bg.to(cdt(cfg))).float()  # (B,S,4d)
-    st = state if state is not None else slstm_state_init(b, d, x.device)
+    hs, new = _slstm_run(p, gx, cfg, state)
+    return linear(p.wo, hs, cfg), new
+
+
+def _slstm_run(p: SLSTMMixer, gx, cfg: ModelConfig,
+               state: Optional[SLSTMState]):
+    """The recurrence over the gates' input pre-activations gx (B,S,4d)
+    f32: (h (B,S,d) in the compute dtype, the new state)."""
+    b, s = gx.shape[:2]
+    d = gx.shape[2] // 4
+    st = state if state is not None else slstm_state_init(b, d, gx.device)
     rg = p.rg.float()
     # blocks of isqrt(S) steps (the reference's two-level checkpoint);
     # the padded steps run too and move the final state
@@ -297,7 +431,26 @@ def slstm_block(p: SLSTMMixer, x, cfg: ModelConfig,
         carry, h = remat_chunk(_slstm_steps, carry, gx[:, j:j + blk], rg)
         hs.append(h)
     hs = torch.cat(hs, dim=1)[:, :s].to(cdt(cfg))             # (B,S,d)
-    return linear(p.wo, hs, cfg), SLSTMState(*carry)
+    return hs, SLSTMState(*carry)
+
+
+def slstm_block_tp(p: SLSTMMixer, x, cfg: ModelConfig,
+                   state: Optional[SLSTMState], keep_state: bool):
+    """The sLSTM block of this rank's part ``x`` of the residual stream in
+    a sharded step (module doc): ``wg``'s columns on the whole sequence,
+    gathered for the recurrence, which runs whole on every rank, and
+    ``wo``'s columns gathered to the output."""
+    ax = ctx.sharded().model
+    if ctx.split_dim(p.wg.w) != 1 or ctx.split_dim(p.wo.w) != 1:
+        return _whole(p, slstm_block, x, cfg, state, keep_state)
+    dt = cdt(cfg)
+    hcol = ctx.whole_seq(apply_norm(seq_norm(p.norm), x, cfg),
+                         grad_sum=True)
+    gx = ctx.gather((linear(p.wg, hcol, cfg) + p.bg.to(dt)).float(), 2, ax,
+                    False)
+    hs, new = _slstm_run(p, gx, cfg, state)
+    out = ctx.gather(ctx.copy(hs, ax) @ p.wo.w.to(dt), 2, ax, False)
+    return shard_hint(out, "acts", "whole"), new if keep_state else None
 
 
 # ---------------------------------------------------------------------------
@@ -357,23 +510,68 @@ def rglru_block(p: RGLRUMixer, x, cfg: ModelConfig,
     lru = p.lru
     r = torch.sigmoid(xr32 @ lru.wa.w.float() + lru.ba.float())  # recurrence
     i = torch.sigmoid(xr32 @ lru.wi.w.float() + lru.bi.float())  # input gate
-    log_a = C_LRU * r * F.logsigmoid(lru.lam.float())
-    a = torch.exp(log_a)                                      # in (0, 1)
-    gx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
-        * (i * xr32)
-
     h0 = (state.h if state is not None
           else torch.zeros((b, dr), dtype=torch.float32, device=x.device))
-    if cfg.use_kernels and s > 1:
-        hs, h_f = rg.rglru_scan(a.contiguous(), gx.contiguous(),
-                                h0.contiguous())
-    else:
-        hs, h_f = linear_scan(a, gx, h0)
-    hs = shard_hint(hs, "acts_ffn")
+    hs, h_f = _rglru_scan(cfg, lru.lam, r, i, xr32, h0)
     # jax.nn.gelu defaults to the tanh approximation
     out = hs.to(cdt(cfg)) * F.gelu(xg, approximate="tanh")
     out = linear(p.wo, out, cfg)
     return out, RGLRUState(h_f, conv_state)
+
+
+def _rglru_scan(cfg: ModelConfig, lam, r, i, xr32, h0):
+    """The RG-LRU's recurrence from its gates r, i and input xr32 (B,S,D)
+    f32 over channels whose Λ is ``lam``: through ``rglru_scan`` when
+    ``cfg.use_kernels`` is set and S > 1, else ``linear_scan``. Returns
+    (h (B,S,D) at the "acts_ffn" hint, h_final (B,D))."""
+    log_a = C_LRU * r * F.logsigmoid(lam.float())
+    a = torch.exp(log_a)                                      # in (0, 1)
+    gx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * xr32)
+    if cfg.use_kernels and a.shape[1] > 1:
+        hs, h_f = rg.rglru_scan(a.contiguous(), gx.contiguous(),
+                                h0.contiguous())
+    else:
+        hs, h_f = linear_scan(a, gx, h0)
+    return shard_hint(hs, "acts_ffn"), h_f
+
+
+def rglru_block_tp(p: RGLRUMixer, x, cfg: ModelConfig,
+                   state: Optional[RGLRUState], keep_state: bool):
+    """The RG-LRU block of this rank's part ``x`` of the residual stream
+    in a sharded step (module doc): the scan on the rank's channels, the
+    state's channels gathered whole when ``keep_state``."""
+    ax = ctx.sharded().model
+    if ctx.split_dim(p.wx.w) != 1:
+        return _whole(p, rglru_block, x, cfg, state, keep_state)
+    dt = cdt(cfg)
+    hcol = ctx.whole_seq(apply_norm(seq_norm(p.norm), x, cfg),
+                         grad_sum=True)
+    b = hcol.shape[0]
+    xr = linear(p.wx, hcol, cfg)                              # (B,S,dr/tp)
+    xg = linear(p.wg, hcol, cfg)
+    xr, conv_state = causal_conv(p.conv, xr, None if state is None else
+                                 ConvState(ctx.local_slice(state.conv.buf,
+                                                           2, ax)))
+    xr32 = xr.float()
+    lru = p.lru
+
+    def gate(lin, bias):
+        # this rank's rows of (dr, dr): a partial sum of every channel,
+        # reduce-scattered to the rank's channels
+        return torch.sigmoid(ctx.scatter_sum(xr32 @ lin.w.float(), 2, ax)
+                             + ctx.split(bias.float(), 0, ax))
+    r, i = gate(lru.wa, lru.ba), gate(lru.wi, lru.bi)
+    h0 = (torch.zeros((b, xr.shape[2]), dtype=torch.float32,
+                      device=x.device) if state is None
+          else ctx.local_slice(state.h, 1, ax))
+    hs, h_f = _rglru_scan(cfg, lru.lam, r, i, xr32, h0)
+    out = hs.to(dt) * F.gelu(xg, approximate="tanh")
+    out = row_out(out @ p.wo.w.to(dt), p.wo.b, cfg)
+    if not keep_state:
+        return out, None
+    return out, RGLRUState(ctx.all_gather(h_f, 1, ax), ConvState(
+        ctx.all_gather(conv_state.buf, 2, ax)))
 
 
 def linear_scan(a, b_in, h0):

@@ -33,10 +33,31 @@ the sums of the split products, of the vocabulary's logsumexp and of the
 gradients over the ranks run in another order.
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry points,
-``make_encode_step`` the encoder-only one (HuBERT).
+``make_encode_step`` the encoder-only one (HuBERT). With ``rules`` they
+are the sharded serving steps, the reference's GSPMD-partitioned
+prefill, decode and encode on plain local tensors, under
+``torch.no_grad()``:
+    prefill_step(model, batch, params) -> (logits, cache)
+    decode_step(model, cache, token, pos, params) -> (logits, cache)
+    encode_step(model, batch, params) -> logits
+``params`` {name: DTensor} placed by the rules (``shard_state``'s
+first), ``batch`` and ``token`` plain tensors or DTensors placed by
+``input_shardings`` and the "tokens" spec, ``cache`` the list of
+per-layer caches as DTensors placed by ``cache_shardings``, as prefill
+returns it. ``model`` is bound to this rank's shards (``bind_shards``),
+each layer gathers its parameters over the dp axes while it runs, each
+rank computes on its rows and its "model" parts (attention on its
+heads, the MLPs and MoE FFN split as in training, the recurrent mixers
+on their "acts_ffn" channels, vocab-split logits) and on its block of
+each cache leaf (``models.model``), and the results are DTensors: the
+logits placed by the "logits" spec, the caches by ``cache_shardings``.
+On a (1, 1) mesh every collective is the identity and the steps compute
+what the one-device steps compute, bit for bit.
 PyTorch runs eagerly, so a step is the function itself, with no ``jit``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -44,7 +65,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.sharding import ctx
-from repro_torch.sharding.rules import distribute, is_whole, \
+from repro_torch.sharding.rules import cache_shardings, distribute, \
     opt_state_shardings, param_shardings
 
 
@@ -163,17 +184,6 @@ def shard_state(model, rules, cfg: ModelConfig):
     return params, opt
 
 
-@torch.no_grad()
-def bind(model, params) -> None:
-    """Make each of ``model``'s parameters whose shard in ``params`` is
-    the whole tensor that shard's storage (a restored state); the others
-    are filled by ``gather_params``. The serving steps' layout."""
-    for name, p in model.named_parameters():
-        shard = params[name]
-        if is_whole(shard.device_mesh, shard.placements):
-            p.data = shard.to_local()
-
-
 def _same_storage(a, b) -> bool:
     """Storages compare by identity, not by data pointer: on the meta
     device (the dry run) every pointer is 0."""
@@ -210,8 +220,7 @@ def gather_params(model, params) -> None:
     """Each of ``model``'s parameters in full from its shard in
     ``params``: nothing to do where the model's tensor is the shard's
     storage, ``full_tensor`` (every rank takes part) elsewhere. The
-    serving steps' layout; the training step never gathers the whole
-    model."""
+    Trainer's result; no step gathers the whole model."""
     for name, p in model.named_parameters():
         shard = params[name]
         if _same_storage(shard.to_local(), p) and p.shape == shard.shape:
@@ -285,21 +294,150 @@ def _rows(key: str, x, i: int, microbatches: int, rules):
     return part.narrow(ax, idx * (rows // n), rows // n)
 
 
-def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(model, batch):
-        return M.prefill(model, cfg, tokens=batch.get("tokens"),
-                         embeds=batch.get("embeds"),
-                         positions=batch.get("positions"))
-    return prefill_step
+def make_prefill_step(cfg: ModelConfig, rules=None, pad_to: int = 0):
+    """``pad_to``: the full-attention caches' capacity (``M.prefill``),
+    room for decode steps after the prompt."""
+    if rules is None:
+        def prefill_step(model, batch):
+            return M.prefill(model, cfg, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"),
+                             positions=batch.get("positions"),
+                             pad_to=pad_to)
+        return prefill_step
+    shardings = param_shardings(rules, cfg)
+
+    def sharded_prefill(model, batch, params):
+        rows = _serve_rows(model, params, batch, rules, shardings)
+        with _serving(rules, batch):
+            logits, cache = M.prefill(model, cfg, tokens=rows.get("tokens"),
+                                      embeds=rows.get("embeds"),
+                                      positions=rows.get("positions"),
+                                      pad_to=pad_to)
+        b, s = _batch_dims(batch)
+        # the caches' global shapes: bookkeeping, made outside any
+        # dispatch mode (the dry run's counter counts the step's work)
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            like = M.prefill_cache_meta(cfg, b, s, pad_to)
+        return (_logits(logits, (b, cfg.vocab_size), rules),
+                _placed_cache(cache, like, rules))
+    return sharded_prefill
 
 
-def make_decode_step(cfg: ModelConfig):
-    def decode_step(model, cache, token, pos):
-        return M.decode_step(model, cfg, cache, token, pos)
-    return decode_step
+def make_decode_step(cfg: ModelConfig, rules=None):
+    if rules is None:
+        def decode_step(model, cache, token, pos):
+            return M.decode_step(model, cfg, cache, token, pos)
+        return decode_step
+    shardings = param_shardings(rules, cfg)
+
+    def sharded_decode(model, cache, token, pos, params):
+        rows = _serve_rows(model, params, {"tokens": token}, rules,
+                           shardings)
+        local = [_leaf_map(lambda t: _cache_block(t, rules), c)
+                 for c in cache]
+        with _serving(rules, {"tokens": token}):
+            logits, new = M.decode_step(model, cfg, local, rows["tokens"],
+                                        int(pos))
+        return (_logits(logits, (token.shape[0], cfg.vocab_size), rules),
+                _placed_cache(new, cache, rules))
+    return sharded_decode
 
 
-def make_encode_step(cfg: ModelConfig):
-    def encode_step(model, batch):
-        return M.encode(model, cfg, embeds=batch["embeds"])
-    return encode_step
+def make_encode_step(cfg: ModelConfig, rules=None):
+    if rules is None:
+        def encode_step(model, batch):
+            return M.encode(model, cfg, embeds=batch["embeds"])
+        return encode_step
+    shardings = param_shardings(rules, cfg)
+
+    def sharded_encode(model, batch, params):
+        rows = _serve_rows(model, params, batch, rules, shardings)
+        with _serving(rules, batch):
+            logits = M.encode(model, cfg, embeds=rows["embeds"])
+        b, s = _batch_dims(batch)
+        return _logits(logits, (b, s, cfg.vocab_size), rules)
+    return sharded_encode
+
+
+# ---------------------------------------------------------------------------
+# the sharded serving steps' layout
+# ---------------------------------------------------------------------------
+
+def _serve_rows(model, params, batch, rules, shardings) -> dict:
+    """Bind ``model`` to this rank's shards; this rank's rows of
+    ``batch``."""
+    bind_shards(model, params, rules, shardings)
+    return {k: _rows(k, v, 0, 1, rules) for k, v in batch.items()}
+
+
+def _serving(rules, batch):
+    """The serving step's context: no autograd, and the sharded step's
+    (each rank its rows where the dp axes divide the batch)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.no_grad())
+    stack.enter_context(ctx.sharded_step(rules, _split(batch, 1, rules)))
+    return stack
+
+
+def _batch_dims(batch):
+    """(rows, sequence length) of a global batch."""
+    k, x = next((k, v) for k, v in batch.items() if k != "positions")
+    return x.shape[0], x.shape[1]
+
+
+def _dtensor(local, shape, sharding, rules):
+    """``local``, this rank's block of a tensor of global ``shape`` placed
+    by ``sharding``, as that DTensor; a block of another shape raises."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    if tuple(local.shape) != rules.local_shape(shape, sharding.spec):
+        raise ValueError(f"a block {tuple(local.shape)} is not the block "
+                         f"of {shape} by {sharding.spec}")
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(local.contiguous(), sharding.mesh,
+                              sharding.placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _logits(local, shape, rules):
+    """This rank's logits as the DTensor the "logits" spec places."""
+    return _dtensor(local, shape, rules.named(
+        rules.activation_spec("logits", tuple(shape))), rules)
+
+
+def _leaf_map(fn, *trees):
+    """``fn`` over the tensors of same-shaped trees (lists, tuples and
+    NamedTuples), the first tree's structure kept."""
+    t = trees[0]
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_leaf_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_leaf_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _cache_block(leaf, rules):
+    """A cache DTensor's local block, its "model"-split dim noted
+    (``model_dim``, read by ``ctx.whole_leaf``); a block not laid out
+    by ``cache_shardings`` raises."""
+    spec = cache_shardings(rules, leaf).spec
+    if tuple(leaf.placements) != rules.placements(spec):
+        raise ValueError(f"a cache leaf {tuple(leaf.shape)} placed "
+                         f"{leaf.placements}, not by {spec}")
+    local = leaf.to_local()
+    over = [rules.split_over(spec, d) for d in range(len(spec))]
+    local.model_dim = over.index("model") if "model" in over else None
+    return local
+
+
+def _placed_cache(cache, like, rules):
+    """The new cache's local blocks as DTensors placed by
+    ``cache_shardings`` at the global shapes of ``like`` (tensors or
+    DTensors of the same tree)."""
+    def place(local, ref):
+        return _dtensor(local, ref.shape, cache_shardings(rules, ref), rules)
+    return _leaf_map(place, cache, like)

@@ -3,20 +3,19 @@
 Model code calls ``shard_hint(x, kind)`` at layout-critical points; what
 that means is decided by the active :class:`ShardingRules` (set by the
 Trainer). With no rules set, hints are the identity, so model code never
-depends on a mesh being present. Outside the sharded train step a
-``DTensor`` is redistributed to the kind's spec and a plain tensor is
-left as it is (the serving steps keep the one-device layout).
+depends on a mesh being present. Outside a sharded step a ``DTensor`` is
+redistributed to the kind's spec and a plain tensor is left as it is.
 
-Inside the sharded train step (``sharded``, entered by
-``models.steps``) each rank computes on plain local tensors, Megatron
-style: its rows of the batch (split over the rules' dp axes), its
-"model" part of every parameter the rules split over "model", and the
-residual stream split along the sequence where the "acts" spec says.
-``shard_hint(x, kind, src=...)`` then moves a rank's tensor to what
-``activation_spec(kind, global shape)`` says, from what ``src`` says it
-is: "partial" (the value is the sum over the "model" ranks), "whole"
-(the same on every rank) or "cols" (this rank's columns of a
-column-parallel product).
+Inside a sharded step (``sharded``, entered by ``models.steps``: the
+train step, and the prefill, decode and encode steps given ``rules``)
+each rank computes on plain local tensors, Megatron style: its rows of
+the batch (split over the rules' dp axes), its "model" part of every
+parameter the rules split over "model", and the residual stream split
+along the sequence where the "acts" spec says. ``shard_hint(x, kind,
+src=...)`` then moves a rank's tensor to what ``activation_spec(kind,
+global shape)`` says, from what ``src`` says it is: "partial" (the value
+is the sum over the "model" ranks), "whole" (the same on every rank) or
+"cols" (this rank's columns of a column-parallel product).
 
 The collectives are autograd Functions over the rules' mesh groups, in
 pairs: gather forward with reduce-scatter (or this rank's slice)
@@ -35,6 +34,11 @@ replicate it, and divides by the dp extent, where the ranks' rows
 differ; where every rank computes every row it takes the rank's slice.
 ``batch_mean`` takes a mean over the dp ranks' rows (the MoE FFN's
 load-balancing fractions), the identity outside the sharded step.
+
+A decode cache leaf inside a serving step is this rank's block of the
+leaf ``rules.cache_shardings`` lays out; ``models.steps`` notes on it
+the dim split over "model" (``model_dim``, None if none), which
+``whole_leaf`` gathers and ``leaf_part`` cuts again.
 """
 from __future__ import annotations
 
@@ -286,9 +290,9 @@ def swiglu_pairs(w, ax: Axis):
 # ---------------------------------------------------------------------------
 
 class Sharded:
-    """What the sharded train step's model code reads: the "model" axis,
-    the dp axes of extent > 1 (minor to major), whether each rank has
-    rows of its own (``split``), and the rules."""
+    """What a sharded step's model code reads: the "model" axis, the dp
+    axes of extent > 1 (minor to major), whether each rank has rows of
+    its own (``split``), and the rules."""
 
     def __init__(self, rules, split: bool):
         mesh = rules.mesh
@@ -318,15 +322,15 @@ class Sharded:
 
 
 def sharded() -> Optional[Sharded]:
-    """The active sharded train step's context, or None."""
+    """The active sharded step's context (train or serving), or None."""
     return _step[0]
 
 
 @contextlib.contextmanager
 def sharded_step(rules, split: bool):
-    """Within the block, model code computes the sharded train step's
-    local parts (module doc); ``split``: each rank's batch is its rows of
-    the global batch, split over the rules' dp axes."""
+    """Within the block, model code computes a sharded step's local
+    parts (module doc); ``split``: each rank's batch is its rows of the
+    global batch, split over the rules' dp axes."""
     prev = _step[0]
     _step[0] = Sharded(rules, split)
     try:
@@ -449,8 +453,9 @@ def whole_block(module, fn, x):
     parameters split over "model" gathered whole (backward this rank's
     slice), this rank's part ``x`` of the residual stream gathered along
     the sequence; the result (or a tuple's first entry) returned as this
-    rank's part. The rules' fallback where a layer's weights are not
-    split, and the recurrent mixers' layout (ROADMAP item 9d)."""
+    rank's part. The fallback where the rules leave a layer's weights
+    unsplit over "model" (a width the axis does not divide, or a world
+    of one)."""
     st = sharded()
     pairs = [(m, n, gather(t, t.model_dim, st.model, False))
              for m, n, t in _params_of(module)
@@ -460,6 +465,22 @@ def whole_block(module, fn, x):
     if isinstance(res, tuple):
         return (shard_hint(res[0], "acts", "whole"), *res[1:])
     return shard_hint(res, "acts", "whole")
+
+
+def whole_leaf(t):
+    """A serving step's cache leaf whole over "model": gathered along
+    its ``model_dim`` where the rules split it, else ``t``."""
+    d = getattr(t, "model_dim", None)
+    return t if d is None else all_gather(t, d, sharded().model)
+
+
+def leaf_part(whole, dim: Optional[int]):
+    """This rank's block of a whole cache leaf along ``dim`` (None: the
+    leaf), contiguous, ``dim`` noted as its ``model_dim``."""
+    out = whole if dim is None else local_slice(
+        whole, dim, sharded().model).contiguous()
+    out.model_dim = dim
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,17 @@ HOST_CELLS = [("smollm-360m", "train", "none", 1),
 PROD_CELLS = [("smollm-360m", "train", "none"),
               ("mixtral-8x7b", "train", "none"),
               ("mixtral-8x7b", "train", "full"),
-              ("smollm-360m", "decode", None)]
+              ("recurrentgemma-2b", "train", "full"),
+              ("xlstm-350m", "train", "full"),
+              ("smollm-360m", "decode", None),
+              ("smollm-360m", "prefill", None),
+              ("mixtral-8x7b", "prefill", None),
+              ("mixtral-8x7b", "decode", None),
+              ("recurrentgemma-2b", "prefill", None),
+              ("recurrentgemma-2b", "decode", None),
+              ("xlstm-350m", "prefill", None),
+              ("xlstm-350m", "decode", None),
+              ("hubert-xlarge", "prefill", None)]
 
 
 def collectives() -> dict:
@@ -79,9 +89,9 @@ def host_cells() -> list:
 
 
 class Issued:
-    """Records every collective the sharded train step issues, where it
-    issues them: the plain collectives of ``sharding.ctx`` (kind, group
-    size, bytes of the result per rank)."""
+    """Records every collective a sharded step (train or serving) issues,
+    where it issues them: the plain collectives of ``sharding.ctx``
+    (kind, group size, bytes of the result per rank)."""
     WRAPPED = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
                "all_reduce": "all-reduce", "all_to_all": "all-to-all"}
 
@@ -114,6 +124,13 @@ def production_cells() -> list:
         out.append({"arch": arch, "kind": kind, "remat": remat,
                     "record": rec, "issued": issued.calls})
     return out
+
+
+def prefill_32k() -> dict:
+    """Qwen1.5-0.5B x prefill_32k at its published widths on the 16 x 16
+    mesh (the kernels' meta route): the record."""
+    return dryrun.run_cell("qwen1.5-0.5b", "prefill_32k",
+                           use_flash_kernel=True, verbose=False)
 
 
 def real_step() -> dict:
@@ -149,6 +166,7 @@ def main() -> None:
     print(json.dumps({"collectives": collectives(),
                       "host_cells": host_cells(),
                       "production_cells": production_cells(),
+                      "prefill_32k": prefill_32k(),
                       "real_step": real_step()}))
 
 

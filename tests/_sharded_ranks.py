@@ -8,7 +8,11 @@ A "steps" job may override config fields (``overrides``) and the rules'
 (``count``), and run in float64 throughout (``f64``, its one-device
 reference too): every float32 tensor the step makes, the model's f32
 upcasts (``.float()``) included, is made float64 (``Float64``), so that
-the comparison reads the arithmetic, not f32 rounding."""
+the comparison reads the arithmetic, not f32 rounding. A "serve" job
+runs the sharded serving steps (a prefill and decode steps, or an
+encode) beside the one-device ones, a "kernels" job a prefill with the
+kernels on, and a "serve_count" job counts one prefill (or encode) and
+one decode step at a dry-run cell's layout."""
 from __future__ import annotations
 
 import os
@@ -27,8 +31,9 @@ from repro_torch.models import steps as S
 from repro_torch.optim import adamw
 from repro_torch.roofline.counter import StepCost
 from repro_torch.sharding import set_rules
-from repro_torch.sharding.rules import input_shardings, make_rules, \
-    opt_state_shardings, param_shardings
+from repro_torch.models import model as M
+from repro_torch.sharding.rules import cache_shardings, distribute, \
+    input_shardings, make_rules, opt_state_shardings, param_shardings
 from repro_torch.train import checkpoint
 from repro_torch.train.trainer import Trainer, TrainConfig
 
@@ -80,8 +85,13 @@ def _precision(f64: bool):
 
 def batch_of(cfg, rows: int, seed: int) -> dict:
     """A global batch: tokens and, for M-RoPE, (3, B, S) positions whose
-    three streams differ."""
+    three streams differ; for an audio frontend, frames and labels."""
     g = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"embeds": g.standard_normal(
+                    (rows, SEQ, cfg.d_frontend)).astype(np.float32),
+                "labels": g.integers(0, cfg.vocab_size,
+                                     (rows, SEQ)).astype(np.int32)}
     out = {"tokens": g.integers(0, cfg.vocab_size,
                                 (rows, SEQ + 1)).astype(np.int32)}
     if cfg.mrope:
@@ -304,16 +314,197 @@ def restore_job(arch, mesh, ckpt_dir, step, wait_s=240.0):
     return {"blocks_are_parts": bool(ok), "state": _state(params, opt)}
 
 
+def serve_inputs(cfg, rows: int, seq: int, n_decode: int) -> dict:
+    """Seeded serving inputs: a prompt batch of ``rows`` x ``seq`` tokens
+    (frames for an audio frontend) and ``n_decode`` (rows, 1) tokens."""
+    g = np.random.default_rng(7)
+    if cfg.frontend:
+        batch = {"embeds": g.standard_normal(
+            (rows, seq, cfg.d_frontend)).astype(np.float32)}
+    else:
+        batch = {"tokens": g.integers(0, cfg.vocab_size,
+                                      (rows, seq)).astype(np.int32)}
+    tokens = [g.integers(0, cfg.vocab_size, (rows, 1)).astype(np.int32)
+              for _ in range(n_decode)]
+    return {"batch": batch, "tokens": tokens}
+
+
+def _full(tree):
+    """A tree of DTensors gathered whole (leaves in order)."""
+    return [x.full_tensor() for x in torch.utils._pytree.tree_leaves(tree)]
+
+
+def _place_batch(batch, rules):
+    return pipe.device_put_batch(batch, input_shardings(rules, batch))
+
+
+def _token(tok, rules):
+    return distribute(torch.from_numpy(tok), rules.named(
+        rules.activation_spec("tokens", tok.shape)))
+
+
+def serve_job(arch, mesh, rows=4, seq=SEQ, n_decode=4, overrides=None,
+              rules_kw=None, f64=True):
+    """The sharded serving steps on ``mesh``: a prefill of ``serve_inputs``
+    with room for ``n_decode`` more tokens, then a decode step on each
+    (an encoder: one encode); every step's logits, and the caches after
+    the prefill and after the last step, gathered whole; and the
+    placements of the last caches' leaves."""
+    cfg = cfg_of(arch, f64, **(overrides or {}))
+    rules = make_rules(_mesh(mesh), **(rules_kw or {}))
+    ins = serve_inputs(cfg, rows, seq, n_decode)
+    out = {"logits": []}
+    with _precision(f64):
+        model = init_model(cfg, 0, "cpu")
+        ps = param_shardings(rules, cfg)
+        params = {n: distribute(p.detach(), ps[n])
+                  for n, p in model.named_parameters()}
+        batch = _place_batch(ins["batch"], rules)
+        with set_rules(rules):
+            if cfg.is_encoder_only:
+                logits = S.make_encode_step(cfg, rules)(model, batch, params)
+                out["logits"].append(logits.full_tensor())
+                return out
+            prefill = S.make_prefill_step(cfg, rules, pad_to=seq + n_decode)
+            logits, cache = prefill(model, batch, params)
+            out["logits"].append(logits.full_tensor())
+            out["prefill_cache"] = _full(cache)
+            decode = S.make_decode_step(cfg, rules)
+            for i, tok in enumerate(ins["tokens"]):
+                logits, cache = decode(model, cache, _token(tok, rules),
+                                       seq + i, params)
+                out["logits"].append(logits.full_tensor())
+    out["cache"] = _full(cache)
+    out["split"] = [[str(p) for p in x.placements]
+                    for x in torch.utils._pytree.tree_leaves(cache)]
+    return out
+
+
+def one_device_serve(arch, mesh=None, rows=4, seq=SEQ, n_decode=4,
+                     overrides=None, rules_kw=None, f64=True):
+    """``serve_job``'s steps on one device, from the same inputs."""
+    cfg = cfg_of(arch, f64, **(overrides or {}))
+    ins = serve_inputs(cfg, rows, seq, n_decode)
+    out = {"logits": []}
+    with _precision(f64), torch.no_grad():
+        model = init_model(cfg, 0, "cpu")
+        batch = pipe.to_device(ins["batch"], "cpu")
+        if cfg.is_encoder_only:
+            out["logits"].append(S.make_encode_step(cfg)(model, batch))
+            return out
+        logits, cache = S.make_prefill_step(cfg, pad_to=seq + n_decode)(
+            model, batch)
+        out["logits"].append(logits)
+        out["prefill_cache"] = [t.clone() for t in
+                                torch.utils._pytree.tree_leaves(cache)]
+        decode = S.make_decode_step(cfg)
+        for i, tok in enumerate(ins["tokens"]):
+            logits, cache = decode(model, cache, torch.from_numpy(tok),
+                                   seq + i)
+            out["logits"].append(logits)
+    out["cache"] = torch.utils._pytree.tree_leaves(cache)
+    return out
+
+
+def serve_count_job(arch, mesh, rows=4, seq=SEQ, overrides=None):
+    """Each rank's dot FLOPs of one prefill (or encode) of ``rows`` x
+    ``seq`` and of one decode step at the last slot of a zero cache of
+    capacity ``seq``, the dry run's cells (f32)."""
+    cfg = cfg_of(arch, **(overrides or {}))
+    rules = make_rules(_mesh(mesh))
+    ins = serve_inputs(cfg, rows, seq, 1)
+    model = init_model(cfg, 0, "cpu")
+    ps = param_shardings(rules, cfg)
+    params = {n: distribute(p.detach(), ps[n])
+              for n, p in model.named_parameters()}
+    batch = _place_batch(ins["batch"], rules)
+    out = {}
+    with set_rules(rules):
+        step = (S.make_encode_step if cfg.is_encoder_only
+                else S.make_prefill_step)(cfg, rules)
+        with StepCost() as c:
+            step(model, batch, params)
+        out["prefill"] = c.flops
+        if cfg.is_encoder_only:
+            return out
+        cache = M.init_cache(cfg, rows, seq, "cpu")
+        cache = [_zip_place(c, rules) for c in cache]
+        with StepCost() as c:
+            S.make_decode_step(cfg, rules)(
+                model, cache, _token(ins["tokens"][0], rules), seq - 1,
+                params)
+        out["decode"] = c.flops
+    return out
+
+
+def kernels_job(arch, mesh, rows=4, seq=SEQ, overrides=None):
+    """The sharded prefill with the kernels on (f32; on CPU tensors each
+    wrapper runs its kernel's plain version): the shapes rank 0 called
+    ``flash_attention`` (q, k) and ``rglru_scan`` (a) at, and the logits
+    gathered whole."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    cfg = cfg_of(arch, **(overrides or {})).replace(use_kernels=True)
+    rules = make_rules(_mesh(mesh))
+    calls = {"flash_attention": [], "rglru_scan": []}
+    orig = fa.flash_attention, rg.rglru_scan
+
+    def flash(q, k, v, **kw):
+        calls["flash_attention"].append((tuple(q.shape), tuple(k.shape)))
+        return orig[0](q, k, v, **kw)
+
+    def scan(a, b, h0):
+        calls["rglru_scan"].append(tuple(a.shape))
+        return orig[1](a, b, h0)
+    model = init_model(cfg, 0, "cpu")
+    ps = param_shardings(rules, cfg)
+    params = {n: distribute(p.detach(), ps[n])
+              for n, p in model.named_parameters()}
+    batch = _place_batch(serve_inputs(cfg, rows, seq, 0)["batch"], rules)
+    fa.flash_attention, rg.rglru_scan = flash, scan
+    try:
+        with set_rules(rules):
+            logits, _ = S.make_prefill_step(cfg, rules)(model, batch, params)
+    finally:
+        fa.flash_attention, rg.rglru_scan = orig
+    return {"calls": calls, "logits": [logits.full_tensor()]}
+
+
+def one_device_kernels(arch, mesh=None, rows=4, seq=SEQ, overrides=None):
+    """``kernels_job``'s prefill on one device."""
+    cfg = cfg_of(arch, **(overrides or {})).replace(use_kernels=True)
+    model = init_model(cfg, 0, "cpu")
+    batch = pipe.to_device(serve_inputs(cfg, rows, seq, 0)["batch"], "cpu")
+    with torch.no_grad():
+        logits, _ = S.make_prefill_step(cfg)(model, batch)
+    return {"logits": [logits]}
+
+
+def _zip_place(tree, rules):
+    shards = cache_shardings(rules, tree)
+    leaves = torch.utils._pytree.tree_leaves(tree)
+    placed = [distribute(x, sh) for x, sh in zip(
+        leaves, torch.utils._pytree.tree_leaves(
+            shards, is_leaf=lambda s: hasattr(s, "placements")))]
+    return torch.utils._pytree.tree_unflatten(
+        placed, torch.utils._pytree.tree_structure(tree))
+
+
 JOBS = {"steps": steps_job, "trainer": trainer_job, "restore": restore_job,
-        "resume": resume_job}
+        "resume": resume_job, "serve": serve_job,
+        "serve_count": serve_count_job, "kernels": kernels_job}
+
+
+ONE_DEVICE = {"steps": one_device_job, "serve": one_device_serve,
+              "kernels": one_device_kernels}
 
 
 def rank_main(rank: int, world: int, init_file: str, out_dir: str,
               jobs: list) -> None:
     """Run ``jobs`` [(name, kind, kwargs)] in order on a gloo world,
-    then this rank's share of the one-device runs the "steps" jobs are
-    held against (each rank every world-th, no collectives). Rank 0
-    saves the jobs' results, every rank its one-device runs, to
+    then this rank's share of the one-device runs the jobs of
+    ``ONE_DEVICE``'s kinds are held against (each rank every world-th,
+    no collectives). Rank 0 saves the jobs' results, every rank its one-device runs, to
     ``out_dir/rank<k>.pt``. A failure is written to ``out_dir/rank<k>.err``
     and ends the process with 1."""
     torch.set_num_threads(1)
@@ -322,9 +513,11 @@ def rank_main(rank: int, world: int, init_file: str, out_dir: str,
                                 rank=rank, world_size=world)
         results = {name: JOBS[kind](**kw) for name, kind, kw in jobs}
         dist.barrier()
-        refs = [(name, kw) for name, kind, kw in jobs if kind == "steps"]
-        mine = {name: one_device_job(**kw)
-                for i, (name, kw) in enumerate(refs) if i % world == rank}
+        refs = [(name, kind, kw) for name, kind, kw in jobs
+                if kind in ONE_DEVICE]
+        mine = {name: ONE_DEVICE[kind](**kw)
+                for i, (name, kind, kw) in enumerate(refs)
+                if i % world == rank}
         torch.save({"jobs": results if rank == 0 else {}, "one_device": mine},
                    os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
@@ -349,9 +542,9 @@ def start(world: int, jobs: list, tmp):
 
 
 def collect(started, timeout: float = 300) -> dict:
-    """Wait for ranks ``start`` began; returns rank 0's results, each
-    "steps" job's as {"sharded", "one_device"}, or raises with the ranks'
-    tracebacks."""
+    """Wait for ranks ``start`` began; returns rank 0's results, each job
+    of a kind with a one-device run (``ONE_DEVICE``) as {"sharded",
+    "one_device"}, or raises with the ranks' tracebacks."""
     procs, jobs, tmp = started
     deadline = time.monotonic() + timeout
     for p in procs:
@@ -369,7 +562,7 @@ def collect(started, timeout: float = 300) -> dict:
              for r in range(len(procs))]
     out = saved[0]["jobs"]
     for name, kind, _ in jobs:
-        if kind == "steps":
+        if kind in ONE_DEVICE:
             ref = next(s["one_device"][name] for s in saved
                        if name in s["one_device"])
             out[name] = {"sharded": out[name], "one_device": ref}

@@ -26,12 +26,13 @@ package runs here, in the same process as the port's tests.
   layer, at one chunk pair; windowed attention saves no such dot).
   Prefill and decode read the same.
 * ``run_cell`` at 16 x 16: the reference record's keys; collectives
-  equal to a count of what the port's step issues: for serving, a count
-  from the rules (each split parameter gathered whole); for training,
-  every collective the sharded step issues, recorded where it issues
-  them (``sharding.ctx``'s gather, reduce-scatter, all-reduce and
-  all-to-all; ``tests/_dryrun_world.py``), which the counter sees at the
-  dispatcher.
+  equal to a count of what the port's step issues: every collective the
+  sharded train or serving step issues, recorded where it issues them
+  (``sharding.ctx``'s gather, reduce-scatter, all-reduce and all-to-all;
+  ``tests/_dryrun_world.py``), which the counter sees at the
+  dispatcher. A serving cell's arguments are rank 0's blocks: each
+  parameter's shard, the batch's rows and each cache leaf's block by
+  ``cache_shardings``, not whole parameters.
 * The kernels' meta route and their noted work; ``validate``'s knobs.
 """
 import dataclasses
@@ -372,30 +373,26 @@ REF_RECORD_EXTRA = ("lower_s", "compile_s", "n_devices", "fits_hbm",
                     "total_dev_bytes")     # src/repro/launch/dryrun.py:98
 
 
-def _expected_collectives(arch, kind, remat, issued):
-    """What the port's step issues at 16 x 16 (2 rows a dp rank). Train:
-    the calls the sharded step issued (``issued``). Serving: a gather
-    over each mesh dim that splits a parameter (DTensor gathers the minor
-    dim first, a result of 1/16 of the whole, then the whole); decode:
-    each cache leaf's "model" split gathered."""
-    if kind == "train":
-        return RL.parse_collectives([tuple(c) for c in issued])
-    cfg = get_smoke(arch)
+def _expected_collectives(issued):
+    """What the port's step issues at 16 x 16 (2 rows a dp rank): the
+    calls the sharded step issued (``issued``)."""
+    return RL.parse_collectives([tuple(c) for c in issued])
+
+
+def _arg_bytes(cfg, shape) -> int:
+    """Rank 0's arguments of a serving cell at 16 x 16: each parameter's
+    block, the batch's rows or the decode token's, and each cache leaf's
+    block, laid out by the rules (``launch.specs.input_layout``)."""
     rules = R.make_rules(stand_in(MESHES["16x16"]))
-    calls = []
-    for name, sh in R.param_shardings(rules, cfg).items():
-        full = int(np.prod(named_specs(cfg)[name].shape)) * 4
-        split = sum(1 for pl in sh.placements if pl.is_shard())
-        calls += [("all-gather", 16, full // 16)] * (split - 1) + \
-            [("all-gather", 16, full)] * (split > 0)
-    if kind == "decode":
-        cache = M.init_cache(cfg, W.PROD_ROWS, W.SEQ, "meta")
-        for leaf in torch.utils._pytree.tree_leaves(cache):
-            spec = R.cache_shardings(rules, leaf).spec
-            if "model" in spec:
-                calls.append(("all-gather", 16,
-                              leaf.numel() // 16 * leaf.element_size()))
-    return RL.parse_collectives(calls)
+    total = 0
+    for tree, shardings in specs.input_layout(cfg, shape, rules):
+        leaves = torch.utils._pytree.tree_leaves(tree)
+        shs = torch.utils._pytree.tree_leaves(
+            shardings, is_leaf=lambda x: isinstance(x, R.NamedSharding))
+        for t, sh in zip(leaves, shs, strict=True):
+            total += int(np.prod(rules.local_shape(t.shape, sh.spec),
+                                 dtype=np.int64)) * t.element_size()
+    return total
 
 
 @pytest.mark.parametrize("cell", W.PROD_CELLS, ids=lambda c: "-".join(
@@ -412,13 +409,42 @@ def test_run_cell_at_16x16(cell, world):
     assert set(rec["collectives"]) == set(ref_roof["collectives"])
     assert rec["mesh"] == "16x16" and rec["n_devices"] == 256
     assert rec["compile_s"] == 0 and rec["supported"]
-    want = _expected_collectives(*cell, res["issued"])
+    want = _expected_collectives(res["issued"])
     assert rec["collectives"]["counts"] == dict(want.counts)
     assert rec["collectives"]["ring_bytes"] == pytest.approx(
         want.ring_bytes, rel=1e-12)
     assert rec["total_dev_bytes"] == rec["arg_bytes"] + rec["temp_bytes"] \
         + rec["out_bytes"]
     assert rec["fits_hbm"] == (rec["total_dev_bytes"] <= RL.HBM_PER_CHIP)
+
+
+@pytest.mark.parametrize("cell", [c for c in W.PROD_CELLS
+                                  if c[1] != "train"],
+                         ids=lambda c: "-".join(map(str, c[:2])))
+def test_serving_arguments_are_the_ranks_blocks(cell, world):
+    """A serving cell's arguments are rank 0's blocks (module doc), far
+    below the whole parameters' bytes."""
+    res = next(r for r in world.result()["production_cells"]
+               if [r["arch"], r["kind"], r["remat"]] == list(cell))
+    arch, kind, _ = cell
+    assert res["record"]["arg_bytes"] == _arg_bytes(
+        get_smoke(arch), ShapeSpec(kind, W.SEQ, W.PROD_ROWS, kind))
+    whole = sum(int(np.prod(s.shape)) * 4
+                for s in named_specs(get_smoke(arch)).values())
+    assert res["record"]["arg_bytes"] < whole
+
+
+def test_prefill_32k_arguments_are_the_ranks_shards(world):
+    """Qwen1.5-0.5B x prefill_32k at its published widths: rank 0's
+    arguments are its parameter shards and its 2 of the 32 prompts,
+    under a tenth of the whole parameters' bytes (the step no longer
+    gathers them: 16 "model" ranks, FSDP over 16 "data" ranks)."""
+    rec = world.result()["prefill_32k"]
+    cfg = get_config("qwen1.5-0.5b")
+    assert rec["arg_bytes"] == _arg_bytes(cfg, SHAPES["prefill_32k"])
+    whole = sum(int(np.prod(s.shape)) * 4
+                for s in named_specs(cfg).values())
+    assert rec["arg_bytes"] < whole / 10
 
 
 # ---------------------------------------------------------------------------
