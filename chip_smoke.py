@@ -114,14 +114,39 @@ Phases, each fatal on any mismatch:
      run_kernel(legacy=True), fuse 1, on 8-CU copy, div_int, vec_mul,
      fir and reduction and 1-CU fir, each against the golden file, its
      launches equal to its steps;
-     for phases 4-8b pe_execute's calls are counted by (W, L) per path
-     (seven: simulator, serve, dse, fleet, compiler, mesh, legacy), each
+  8c. entry points (entry_points_path): the port's own entry points, as
+     a user starts them, on the card: python -m repro_torch.registry
+     --selfcheck in a process of its own (exit 0); each
+     examples/torch_<name>.py's main(argv) at the reference example's
+     defaults (serve_decode's legs at --ggpu 6 and --fleet 4), the
+     printed lines of ggpu_simulate (mat_mul on 4 CUs, then its scalar
+     run), serve_decode's --ggpu and --fleet legs, serve_graph,
+     serve_chaos, compile_kernel and planner_dse (up to its MeshPlanner
+     section, which plans with the H100's constants) equal, their
+     wall-clock fields masked, to the JAX package's examples' in
+     src/repro_torch/examples_golden.json; quickstart (40 steps, then
+     greedy generation through flash_attention) with its loss finite and
+     falling and its tokens in range; train_lm at small widths, finite,
+     and stopped at step 3 and started again, bit for bit an
+     uninterrupted run;
+     serve_decode's LLM leg at its defaults twice, the same tokens, in
+     range; and the registry's cross-product cell (shared, cohort,
+     earliest-finish, seu) through the CLI's --run-cell, losing nothing;
+     each entry's launches counted by kernel (pe_execute by (W, L),
+     flash_attention and rglru_scan by route). ggpu_simulate,
+     compile_kernel, serve_graph, planner_dse (after phase 6, whose DSE
+     memo its search reads) and the cell are WORKERS pieces, the rest run
+     in this process after phase 8b;
+     for phases 4-8c pe_execute's calls are counted by (W, L) per path
+     (nine: simulator, serve, dse, fleet, compiler, mesh, legacy,
+     entry_points, registry_cell), each
      path's wall time, rounds and µs per round reported, for 4-8
      also the device's busy share (torch.profiler over a representative
      piece); the longest pieces (the main path's xcorr, parallel_sel and
-     scalar runs, phase 6 and phase 8) run in three worker processes
+     scalar runs, phase 6 and phase 8, and phase 8c's simulator
+     examples and registry cell) run in five worker processes
      (WORKERS: python3 chip_smoke.py --worker NAME), started once phase 3
-     is done, beside this process's phases 4, 5, 7 and 8b, each counting
+     is done, beside this process's phases 4, 5, 7, 8b and 8c, each counting
      its paths the same way and reporting its counts; and at every
      (W, L) the paths launched, pe_execute held bit for
      bit against select_alu on random inputs (with each opcode set the
@@ -262,12 +287,16 @@ a CUDA device or without the repository's src/ beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -332,6 +361,7 @@ from repro_torch.models.recurrent import linear_scan  # noqa: E402
 from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.registry import FAULTS  # noqa: E402
 from repro_torch.registry import smoke as registry_smoke  # noqa: E402
+from repro_torch.registry.__main__ import main as registry_main  # noqa
 from repro_torch.serve import (Dep, Fleet, FleetResilience,  # noqa: E402
                                Request, Scheduler, extract_outputs,
                                pinned_makespan, poisson_arrivals, replay,
@@ -428,8 +458,7 @@ REDUCED = ["1-CU and scalar xcorr/parallel_sel (58k-625k lockstep rounds "
            "PERF.md §7's first cut); full width",
            "llama4-scout-17b-a16e n_layers 48 -> 1 (4.15 B parameters); "
            "full width",
-           "the registry's cross-product cell (shared, cohort, "
-           "earliest-finish, seu; ~6.8k rounds), the serving drain's xcorr "
+           "the serving drain's xcorr "
            "and parallel_sel cohorts (their golden and variant images, "
            "~41k and ~15k rounds): with phase 13 the script took 1,134.5 s "
            "of its 1,200 s on one host and 1,365 s on a slower one after "
@@ -923,6 +952,12 @@ FLASH_CASES = [
     (10, 1, 1000, 1000, 256, True, 300, torch.bfloat16),
     (6, 3, 96, 160, 64, False, 0, torch.bfloat16),
     (3, 1, 130, 130, 33, True, 0, torch.bfloat16),
+    # phase 8c's prefills: quickstart's SmolLM smoke config (2 prompts x
+    # 3 q heads, 1 kv head, hd 20), serve_decode's Granite smoke config
+    # (3 slots' prompts, then the fourth, x 4 q heads, 2 kv heads, hd 16)
+    (6, 2, 3, 3, 20, True, 0, torch.bfloat16),
+    (12, 6, 4, 4, 16, True, 0, torch.bfloat16),
+    (4, 2, 1, 1, 16, True, 0, torch.bfloat16),
 ]
 # flash_attention's limits: max |err| as the JAX package's tests hold its
 # kernel, and max |err| per query row over the row's largest |o|, since
@@ -2647,7 +2682,7 @@ def resilience_legs(dev) -> dict:
 
 def registry_leg(dev) -> dict:
     """selfcheck and smoke_all on the card with no problem (the
-    cross-product cell is cut: REDUCED)."""
+    cross-product cell runs in phase 8c, a WORKERS piece)."""
     out = {}
     for name, fn in (("selfcheck", registry_smoke.selfcheck),
                      ("smoke_all", lambda emit: registry_smoke.smoke_all(
@@ -3161,6 +3196,357 @@ def legacy_path(benches, golden, dev) -> dict:
                          "steps": info["steps"]}
     emit({"legacy_path": runs})
     return runs
+
+
+# -- phase 8c: the port's own entry points ----------------------------------
+
+EXAMPLES = ROOT / "examples"
+GOLDEN_EXAMPLES = ROOT / "src" / "repro_torch" / "examples_golden.json"
+# The examples whose lines are exact, {key: (script, argv)}: the JAX
+# package's examples/<script>.py prints the same lines for the same argv.
+# examples_golden.json holds its lines (tests/test_torch_examples_golden.py
+# recomputes them from the JAX package on the CPU); the port's
+# examples/torch_<script>.py must print them, its wall-clock fields masked
+# (exact_lines).
+EXACT_EXAMPLES = {
+    "ggpu_simulate": ("ggpu_simulate", ()),
+    "serve_decode_ggpu": ("serve_decode", ("--ggpu", "6")),
+    "serve_decode_fleet": ("serve_decode", ("--fleet", "4")),
+    "serve_graph": ("serve_graph", ()),
+    "serve_chaos": ("serve_chaos", ()),
+    "compile_kernel": ("compile_kernel", ()),
+    "planner_dse": ("planner_dse", ()),
+}
+# planner_dse's MeshPlanner section plans with the H100's constants (the
+# reference's with its own): its exact lines end before that section
+PLANNER_MESH_HEADER = "=== MeshPlanner"
+WALL_CLOCK = ((re.compile(r" *\d+(?:\.\d+)? ?ms\b"), " <ms>"),
+              (re.compile(r"speedup \d+(?:\.\d+)?x"), "speedup <x>"))
+# exact examples this process runs in phase 8c; the rest are WORKERS
+# pieces (example:<key>), host-bound simulator paths of 7k-67k rounds
+PARENT_EXAMPLES = ("serve_decode_ggpu", "serve_decode_fleet", "serve_chaos")
+# train_lm at small widths; its resume check fails a run at step 3 and
+# resumes it from its step-2 checkpoint. 4 steps lie inside the script's
+# 30-step warm-up, where the loss need not fall (5.594 -> 5.606 on the
+# CPU); a third run of TRAIN_LM_FALL_STEPS, past the warm-up, must end
+# below its first loss (5.594 -> 5.035 on the CPU)
+TRAIN_LM_ARGV = ("--steps", "4", "--d-model", "64", "--layers", "2",
+                 "--heads", "2", "--seq-len", "32", "--batch", "4",
+                 "--vocab", "256")
+TRAIN_LM_SAVE_EVERY, TRAIN_LM_FAIL_AT = 2, 3
+TRAIN_LM_FALL_STEPS = 40
+# the registry's cross-product cell, a WORKERS piece (registry_cell)
+REGISTRY_CELL = ("shared", "cohort", "earliest-finish", "seu")
+
+
+def load_example(path: Path, name: Optional[str] = None):
+    """The example script at ``path`` as a fresh module (its ``main``
+    not run)."""
+    spec = importlib.util.spec_from_file_location(
+        name or f"example_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def captured(fn, *args, **kw) -> tuple:
+    """(fn's result, what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def exact_lines(key: str, text: str) -> list:
+    """An exact example's printed lines, its wall-clock fields masked
+    (times in ms, wall-clock speedups); planner_dse's up to its
+    MeshPlanner section."""
+    lines = text.splitlines()
+    if key == "planner_dse":
+        heads = [i for i, ln in enumerate(lines)
+                 if ln.startswith(PLANNER_MESH_HEADER)]
+        lines = lines[:heads[0] if heads else len(lines)]
+    while lines and not lines[-1].strip():
+        lines.pop()
+    out = []
+    for ln in lines:
+        for pattern, mask in WALL_CLOCK:
+            ln = pattern.sub(mask, ln)
+        out.append(ln)
+    return out
+
+
+def _device_argv(dev) -> list:
+    """An example's --device: none on the card (its default)."""
+    return [] if dev.type == "cuda" else ["--device", str(dev)]
+
+
+def counted_entry(fn, *args) -> tuple:
+    """(fn's record with every kernel's launches, counted from 0 just
+    before it: pe_execute by (W, L), flash_attention and rglru_scan by
+    route; pe_execute's calls by (W, L))."""
+    reset_launch_counts()
+    rec, launches, shapes, wall = counted_path(fn, *args)
+    return {**rec, "wall_s": wall, "pe_execute_launches": launches,
+            "pe_execute_launches_by_shape": {
+                f"{W}x{L}": n for (W, L), n in shapes.items()},
+            "flash_attention": dict(fa.ROUTE_LAUNCHES),
+            "rglru_scan": dict(rg.ROUTE_LAUNCHES)}, shapes
+
+
+def exact_example(key: str, golden: dict, dev) -> dict:
+    """examples/torch_<script>.py's main on ``dev`` (the card: its
+    default), its exact lines against the golden file's."""
+    script, argv = EXACT_EXAMPLES[key]
+    mod = load_example(EXAMPLES / f"torch_{script}.py")
+    _, text = captured(mod.main, list(argv) + _device_argv(dev))
+    got, want = exact_lines(key, text), golden[key]["lines"]
+    bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    check(len(got) == len(want) and not bad,
+          f"example {key}: {len(got)} exact lines against the golden "
+          f"file's {len(want)}; first differing: {bad[:3]}")
+    return {"argv": list(argv), "exact_lines": len(got),
+            "printed": text.splitlines()}
+
+
+def _tokens_in_range(what: str, outs, vocab: int) -> None:
+    bad = [t for row in outs for t in row if not 0 <= t < vocab]
+    check(not bad, f"{what}: tokens out of [0, {vocab}): {bad[:8]}")
+
+
+@contextlib.contextmanager
+def recorded_flash():
+    """Every flash_attention call made inside: (q, k, v, its keywords,
+    its output), copied; the calls launch and count as before."""
+    calls, real = [], fa.flash_attention
+
+    def record(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+    fa.flash_attention = record
+    try:
+        yield calls
+    finally:
+        fa.flash_attention = real
+
+
+def check_flash_calls(what: str, calls) -> dict:
+    """An entry's own flash_attention calls (recorded_flash) against the
+    plain attention on the same inputs, at FLASH_ATOL and FLASH_ROW_RTOL
+    of their dtype: the worst errors by shape."""
+    check(calls, f"{what}: no flash_attention call")
+    worst: dict = {}
+    for q, k, v, kw, got in calls:
+        name = _flash_name(tuple(q.shape[:1]) + tuple(k.shape[:1])
+                           + tuple(q.shape[1:2]) + tuple(k.shape[1:])
+                           + (kw["causal"], kw["window"], q.dtype))
+        want = attention_ref(q, k, v, causal=kw["causal"],
+                             window=kw["window"],
+                             scale=kw["scale"] or q.shape[-1] ** -0.5)
+        err, row = _flash_errs(got, want)
+        check(err <= FLASH_ATOL[q.dtype] and row <= FLASH_ROW_RTOL[q.dtype],
+              f"{what}: flash_attention {name}: max |err| {err}, per row "
+              f"{row} of its max |o| (limits {FLASH_ATOL[q.dtype]}, "
+              f"{FLASH_ROW_RTOL[q.dtype]})")
+        w = worst.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
+                                    "max_row_rel_err": 0.0})
+        w["calls"] += 1
+        w["max_abs_err"] = max(w["max_abs_err"], err)
+        w["max_row_rel_err"] = max(w["max_row_rel_err"], row)
+    return worst
+
+
+def quickstart_entry(dev) -> dict:
+    """examples/torch_quickstart.py (a temporary checkpoint directory in
+    the checkout): 40 training steps (plain PyTorch), then greedy
+    Engine.generate through flash_attention; the loss finite and
+    falling, the tokens in range, each flash_attention call within its
+    limits of the plain attention."""
+    mod = load_example(EXAMPLES / "torch_quickstart.py")
+    with tempfile.TemporaryDirectory(prefix=".quickstart_ckpt_",
+                                     dir=ROOT) as d, recorded_flash() as fl:
+        res, text = captured(mod.main, ["--ckpt-dir", d] + _device_argv(dev))
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses), f"quickstart: {losses}")
+    check(losses[-1] < losses[0],
+          f"quickstart: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    _tokens_in_range("quickstart", res["generated"], res["vocab_size"])
+    return {"losses": losses, "generated": res["generated"],
+            "flash_calls": check_flash_calls("quickstart", fl),
+            "printed": text.splitlines()}
+
+
+def train_lm_entry(dev) -> dict:
+    """examples/torch_train_lm.py at TRAIN_LM_ARGV: a run of 4 steps,
+    and one that fails at step TRAIN_LM_FAIL_AT and is started again,
+    resuming from its checkpoint; the losses finite, the resumed run's
+    losses, parameters and AdamW state bit for bit the uninterrupted
+    one's (as on the CPU; on the card as phase 11's resume is). Then a
+    run of TRAIN_LM_FALL_STEPS, whose loss must fall."""
+    mod = load_example(EXAMPLES / "torch_train_lm.py")
+    argv = list(TRAIN_LM_ARGV) + _device_argv(dev)
+    tc = mod.TrainConfig
+    with tempfile.TemporaryDirectory(prefix=".train_lm_ckpt_", dir=ROOT) as d:
+        a, text = captured(mod.main, argv + ["--ckpt-dir", f"{d}/a"])
+        mod.TrainConfig = lambda **kw: tc(**{
+            **kw, "save_every": TRAIN_LM_SAVE_EVERY,
+            "fail_at_step": TRAIN_LM_FAIL_AT})
+        failed = ""
+        try:
+            captured(mod.main, argv + ["--ckpt-dir", f"{d}/b"])
+        except RuntimeError as e:
+            failed = str(e)
+        finally:
+            mod.TrainConfig = tc
+        resumed_from = checkpoint.latest_step(f"{d}/b")
+        b, _ = captured(mod.main, argv + ["--ckpt-dir", f"{d}/b"])
+        long, _ = captured(mod.main, argv + [
+            "--ckpt-dir", f"{d}/c", "--steps", str(TRAIN_LM_FALL_STEPS)])
+    losses, fall = a["losses"], long["losses"]
+    check(all(math.isfinite(x) for x in losses + b["losses"] + fall),
+          f"train_lm: {losses}, resumed {b['losses']}, long {fall}")
+    check(len(fall) == TRAIN_LM_FALL_STEPS and fall[-1] < fall[0],
+          f"train_lm: the loss did not fall over {len(fall)} steps: "
+          f"{fall[0]} -> {fall[-1]}")
+    check(failed == f"injected failure at step {TRAIN_LM_FAIL_AT}",
+          f"train_lm's interrupted run: {failed!r}")
+    check(resumed_from == TRAIN_LM_SAVE_EVERY,
+          f"train_lm resumed from {resumed_from}")
+    check(b["steps"] == a["steps"][TRAIN_LM_SAVE_EVERY:],
+          f"train_lm's resumed steps: {b['steps']}")
+    diff = _state_diff(dict(a["model"].named_parameters()), a["opt"],
+                       dict(b["model"].named_parameters()), b["opt"])
+    check(b["losses"] == losses[TRAIN_LM_SAVE_EVERY:] and not diff["differ"],
+          f"train_lm resumed: {b['losses']} against {losses}; {diff}")
+    return {"losses": losses, "resumed_losses": b["losses"],
+            "long_run": {"steps": len(fall), "first_loss": fall[0],
+                         "last_loss": fall[-1]},
+            "failed_with": failed, "resumed_from": resumed_from,
+            "resume_bit_identical": diff["differ"] == 0, "resume": diff,
+            "printed": text.splitlines()}
+
+
+def serve_llm_entry(dev) -> dict:
+    """examples/torch_serve_decode.py's LLM leg at its defaults (the
+    smoke granite-8b, 16 tokens sampled at temperature 0.8), twice: the
+    same seed, the same tokens, all in range; its prefill through
+    flash_attention, each call within its limits of the plain
+    attention."""
+    mod = load_example(EXAMPLES / "torch_serve_decode.py")
+    with recorded_flash() as fl:
+        outs, text = captured(mod.main, _device_argv(dev))
+        again, _ = captured(mod.main, _device_argv(dev))
+    check(outs == again, "serve_decode: one seed, other tokens")
+    _tokens_in_range("serve_decode", outs, mod.get_smoke("granite-8b").vocab_size)
+    return {"flash_calls": check_flash_calls("serve_decode", fl),
+            "printed": text.splitlines()}
+
+
+class RegistryProcess:
+    """``python -m repro_torch.registry ARGV`` in a process of its own,
+    started at once; ``result`` waits for it, and it must exit 0."""
+
+    def __init__(self, argv):
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
+            if p)}
+        self.argv, self.t0 = list(argv), time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.registry", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(ROOT), env=env)
+
+    def result(self) -> dict:
+        out, err = self.proc.communicate(timeout=300)
+        check(self.proc.returncode == 0,
+              f"python -m repro_torch.registry {' '.join(self.argv)}: exit "
+              f"{self.proc.returncode}\n{err[-2000:]}")
+        return {"argv": self.argv, "rc": self.proc.returncode,
+                "wall_s": time.perf_counter() - self.t0,
+                "lines": out.splitlines()}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def registry_cell(dev) -> dict:
+    """The registry's cross-product cell (REGISTRY_CELL) through the
+    CLI's entry point, ``--run-cell``: exit 0, nothing lost."""
+    argv = ["--run-cell", *REGISTRY_CELL] + _device_argv(dev)
+    rc, text = captured(registry_main, argv)
+    check(rc == 0, f"python -m repro_torch.registry {' '.join(argv)}: "
+          f"exit {rc}")
+    return {"argv": argv, "rc": rc, "lines": text.splitlines()}
+
+
+def worker_entry(name: str, dev) -> tuple:
+    """A WORKERS piece of phase 8c, counted: ``example:<key>`` or
+    ``registry_cell``."""
+    if name == "registry_cell":
+        return counted_entry(registry_cell, dev)
+    golden = json.loads(GOLDEN_EXAMPLES.read_text())
+    return counted_entry(exact_example, name.split(":", 1)[1], golden, dev)
+
+
+def entry_points_path(dev) -> dict:
+    """Phase 8c in this process (module doc): the CLI's self-check in a
+    process of its own (beside the rest), PARENT_EXAMPLES against the
+    golden file, and the LM examples; each entry's launches counted. Returns the entries and
+    their pe_execute calls by (W, L)."""
+    golden = json.loads(GOLDEN_EXAMPLES.read_text())
+    entries = {}
+    by_shape: dict = {}
+    pieces = [(key, exact_example, (key, golden, dev))
+              for key in PARENT_EXAMPLES]
+    pieces += [("quickstart", quickstart_entry, (dev,)),
+               ("train_lm", train_lm_entry, (dev,)),
+               ("serve_decode_lm", serve_llm_entry, (dev,))]
+    selfcheck = RegistryProcess(["--selfcheck"])      # meanwhile
+    try:
+        for key, fn, args in pieces:
+            entries[key], shapes = counted_entry(fn, *args)
+            for k, n in shapes.items():
+                by_shape[k] = by_shape.get(k, 0) + n
+        entries["registry_selfcheck"] = selfcheck.result()
+    finally:
+        selfcheck.stop()
+    emit({"entry_points": entries})
+    return {"entries": entries, "by_shape": by_shape}
+
+
+def entry_points_summary(entry: dict, got: dict, counts: dict) -> dict:
+    """Phase 8c whole: this process's entries (``entry``) and the
+    workers' pieces (``got``, their counts merged into ``counts`` by
+    merge_workers), each example's launches by kernel; ``by_shape`` the
+    pe_execute calls of every example by (W, L)."""
+    per = {key: {k: rec[k] for k in (
+        "wall_s", "pe_execute_launches", "flash_attention", "rglru_scan")
+        if k in rec} for key, rec in entry["entries"].items()}
+    by_shape = dict(entry["by_shape"])
+    for name, rec in got.items():
+        for path, c in rec["paths"].items():
+            if not path.startswith("example:"):
+                continue
+            per[path.split(":", 1)[1]] = {
+                "worker": name, **{k: c["record"][k] for k in (
+                    "wall_s", "pe_execute_launches", "flash_attention",
+                    "rglru_scan")}}
+            for W, L, n in c["by_shape"]:
+                by_shape[(W, L)] = by_shape.get((W, L), 0) + n
+    cell = next(c for rec in got.values()
+                for p, c in rec["paths"].items() if p == "registry_cell")
+    return {"examples": per, "registry_cell": cell["record"],
+            "pe_execute_launches": sum(by_shape.values()),
+            "flash_attention_launches": sum(
+                sum(r.get("flash_attention", {}).values())
+                for r in per.values()),
+            "rglru_scan_launches": sum(
+                sum(r.get("rglru_scan", {}).values()) for r in per.values()),
+            "registry_cell_launches": counts["registry_cell"][0],
+            "by_shape": by_shape}
 
 
 # -- phase 11: LM training on the card ---------------------------------------
@@ -5024,10 +5410,13 @@ def dryrun_path(dry: DryRun, legs: dict) -> dict:
 # opcode sets it gave the kernel there. {name: (main-path runs, whole
 # paths)}
 WORKERS = {
-    "xcorr": (("8cu/shared/xcorr", "scalar/copy", "scalar/div_int"), ()),
-    "dse": ((), ("dse",)),
+    "xcorr": (("8cu/shared/xcorr", "scalar/copy", "scalar/div_int"),
+              ("example:serve_graph",)),
+    "dse": ((), ("dse", "example:planner_dse")),
     "compiler": (("8cu/shared/parallel_sel", "scalar/vec_mul"),
                  ("compiler",)),
+    "simulate": ((), ("example:ggpu_simulate", "registry_cell")),
+    "compile": ((), ("example:compile_kernel",)),
 }
 WORKER_RUNS = {key for runs, _ in WORKERS.values() for key in runs}
 WORKER_TIMEOUT_S = 600
@@ -5039,7 +5428,14 @@ def _shapes_out(by_shape: dict) -> list:
 
 def _worker_path(name: str, dev) -> dict:
     """One whole path of a worker, counted, with its count line and its
-    busy-share line."""
+    busy-share line (a phase 8c piece: its record, with its counts)."""
+    if name.startswith("example:") or name == "registry_cell":
+        rec, shapes = worker_entry(name, dev)
+        emit({f"entry_points_{name}": rec})
+        return {"launches": rec["pe_execute_launches"],
+                "by_shape": _shapes_out(shapes), "wall_s": rec["wall_s"],
+                "record": {k: v for k, v in rec.items()
+                           if k not in ("printed", "lines")}}
     fn, profile = {"dse": (dse_path, dse_profile),
                    "compiler": (compiler_path, compiler_profile)}[name]
     _, launches, shapes, wall = counted_path(fn, dev)
@@ -5265,12 +5661,20 @@ def _phases(dev, laps, dry, workers) -> int:
             ("mesh", mesh_launches, mesh_shapes, mesh_wall),
             ("legacy", legacy_launches, legacy_shapes, legacy_wall))}})
     laps.append(("mesh_legacy", time.perf_counter()))
+    entry = entry_points_path(dev)
+    laps.append(("entry_points", time.perf_counter()))
     got = workers.join()
     counts = {"simulator": [launches, by_shape]}
     merge_workers(got, counts)
     launches, by_shape = counts["simulator"]
     dse_launches, dse_shapes = counts["dse"]
     compiler_launches, compiler_shapes = counts["compiler"]
+    cell_launches, cell_shapes = counts["registry_cell"]
+    entries = entry_points_summary(entry, got, counts)
+    entry_launches = entries["pe_execute_launches"]
+    entry_shapes = entries.pop("by_shape")
+    entry_flash = entries["flash_attention_launches"]
+    emit({"entry_points_summary": entries})
     emit({"workers": {name: {"wall_s": rec["wall_s"],
                              "process_s": rec["seconds"],
                              "runs": list(WORKERS[name][0]),
@@ -5285,12 +5689,16 @@ def _phases(dev, laps, dry, workers) -> int:
     path_launches = {"simulator": launches, "serve": serve_launches,
                      "dse": dse_launches, "fleet": fleet_launches,
                      "compiler": compiler_launches, "mesh": mesh_launches,
-                     "legacy": legacy_launches}
+                     "legacy": legacy_launches,
+                     "entry_points": entry_launches,
+                     "registry_cell": cell_launches}
     pe = pe_shapes_phase(dev, {"simulator": by_shape, "serve": serve_shapes,
                                "dse": dse_shapes, "fleet": fleet_shapes,
                                "compiler": compiler_shapes,
                                "mesh": mesh_shapes,
-                               "legacy": legacy_shapes})
+                               "legacy": legacy_shapes,
+                               "entry_points": entry_shapes,
+                               "registry_cell": cell_shapes})
     laps.append(("pe_execute_shapes", time.perf_counter()))
 
     lm_golden(dev)
@@ -5351,6 +5759,7 @@ def _phases(dev, laps, dry, workers) -> int:
                            "lm_serve_sharded":
                                served["prefill_launches"]["flash_attention"],
                            "moe": moe_path["flash_launches"],
+                           "entry_points": entry_flash,
                            "hubert": families["hubert_flash_launches"],
                            "qwen2_vl": families["qwen2_vl_flash_launches"]},
          **{key: {k: flash[key][k] for k in (
@@ -5377,7 +5786,8 @@ def _phases(dev, laps, dry, workers) -> int:
          "path_route": rglru["route"], "direct_route_ms": rglru["direct_ms"],
          "shapes": rglru["shapes"],
          "path_launches": {"lm": rglru_launches, "lm_serve_sharded":
-                           served["prefill_launches"]["rglru_scan"]},
+                           served["prefill_launches"]["rglru_scan"],
+                           "entry_points": entries["rglru_scan_launches"]},
          "rank_shapes": served["kernels_at_rank_shapes"]["rglru_scan"]}]})
     check(launches > 0, "the simulator's path launched no pe_execute kernel")
     check(serve_launches > 0, "the serving path launched no pe_execute")
@@ -5386,6 +5796,9 @@ def _phases(dev, laps, dry, workers) -> int:
     check(compiler_launches > 0, "the compiler path launched no pe_execute")
     check(mesh_launches > 0, "the mesh path launched no pe_execute")
     check(legacy_launches > 0, "the legacy path launched no pe_execute")
+    check(entry_launches > 0, "the entry points launched no pe_execute")
+    check(cell_launches > 0, "the registry's cell launched no pe_execute")
+    check(entry_flash > 0, "the entry points launched no flash_attention")
     check(flash_launches > 0, "the LM path launched no flash_attention")
     check(moe_path["flash_launches"] > 0,
           "the MoE path launched no flash_attention")

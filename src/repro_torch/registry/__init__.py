@@ -31,10 +31,12 @@ by name everywhere (``GGPUConfig(memsys=...)``, ``Scheduler(policy=...)``,
 ``Fleet(router=...)``, ``FAULTS.get(...)``). Discovery never scans the
 JAX package's plugins: the port's axes hold the port's objects only.
 
-``AXES`` maps axis name -> axis for generic enumeration;
-``SCENARIO_AXES`` is the scenario cross-product's subset (the same six
-here: the reference's ``SECTIONS`` axis of benchmark-harness sections
-waits for the port's benchmark entry points, ROADMAP.md queue item 10).
+``AXES`` maps axis name -> axis for generic enumeration (the CLI,
+``python -m repro_torch.registry``, iterates it); ``SCENARIO_AXES`` is
+the scenario cross-product's subset (the same six here: only the
+reference's ``SECTIONS`` axis of benchmark-harness sections, with
+``smoke.smoke_sections``, waits for the port's benchmark entry points,
+ROADMAP.md queue item 10).
 """
 from repro_torch.registry.core import (Axis, DuplicateNameError,
                                        RegistryError, UnknownPluginError)

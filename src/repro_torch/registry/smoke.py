@@ -11,14 +11,16 @@ port of ``repro.registry.smoke``).
     trace with nothing lost; every traffic generator's trace replays
     through a live scheduler; every fault scenario serves a trace on a
     two-device fleet with nothing lost and nothing corrupted. A plugin
-    that imports but cannot actually run fails here. (The reference's
-    ``smoke_sections`` waits with the ``SECTIONS`` axis.)
+    that imports but cannot actually run fails here. (Only the
+    reference's ``smoke_sections`` waits, with the ``SECTIONS`` axis.)
   * :func:`run_cell` — one cell of the scenario cross-product: a
     (memsys, policy, router, fault) combination serving every registered
     traffic pattern across a two-device fleet.
 
-Every function takes ``device=`` (``None``: the card; ``"cpu"`` for the
-plain path), where every scheduler and fleet it builds runs. Sizes are
+The CLI, ``python -m repro_torch.registry``, reaches all three
+(``--selfcheck``, ``--smoke``, ``--run-cell``). Every function that
+launches takes ``device=`` (``None``: the card; ``"cpu"`` for the plain
+path), where every scheduler and fleet it builds runs. Sizes are
 deliberately tiny: the point is *coverage of the registered names*.
 """
 from __future__ import annotations

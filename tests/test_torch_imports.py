@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor anything of the JAX
-package, and it runs on the card unless a caller asks for the CPU."""
+"""The port stands alone: it, its examples (``examples/torch_*.py``) and
+``chip_smoke.py`` import neither JAX nor anything of the JAX package, and
+it runs on the card unless a caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_modules():
@@ -46,10 +48,14 @@ def test_port_imports_no_jax_and_no_reference_module():
     # the kernel wrapper first: it must import on its own (no cycle)
     mods.remove("repro_torch.kernels.pe_simd")
     mods.insert(0, "repro_torch.kernels.pe_simd")
+    assert len(EXAMPLES) == 8
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")
@@ -71,7 +77,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_reference_import(path):
     for name in _imports(path):
