@@ -34,6 +34,10 @@ dim instead, each rank runs every expert on its columns of ``wi`` and
 rows of ``wo``. Either way the combine is a partial sum over "model",
 reduce-scattered to the rank's part of the stream; a layer whose experts
 are split neither way runs whole on every rank.
+
+Under a tracer (``repro_torch.trace``) ``apply_moe`` is the device span
+``moe``, and ``_routed`` counts the layer's (token, choice) pairs
+(``moe_pairs``) and those past capacity (``moe_dropped_pairs``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.models.layers import Norm, apply_norm, cdt, param, \
     seq_norm
 from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import batch_mean, shard_hint
+from repro_torch.trace import current
 
 
 class Router(nn.Module):
@@ -108,9 +113,10 @@ def _slots(experts, e: int, cap: int):
 
 def apply_moe(p: MoE, x, cfg: ModelConfig):
     """The MoE FFN of (B, S, d) ``x``: (out (B, S, d), aux ())."""
-    if ctx.sharded() is not None:
-        return moe_tp(p, x, cfg)
-    return _moe(p, x, cfg)
+    with current().span("moe", device=True):
+        if ctx.sharded() is not None:
+            return moe_tp(p, x, cfg)
+        return _moe(p, x, cfg)
 
 
 def _aux(probs, experts, e: int, cfg: ModelConfig):
@@ -155,6 +161,10 @@ def _routed(p: MoE, h_route, h_disp, cfg: ModelConfig, st=None,
     cap = capacity(s, cfg)
     probs, gates, experts = route(h_route, p.router.w, k)
     slot, keep = _slots(experts, e, cap)
+    tr = current()
+    if tr.on:
+        tr.count("moe_pairs", keep.numel())
+        tr.count("moe_dropped_pairs", (~keep).sum())
     n_local, wi = e, p.wi.to(dt)
     if st is not None:
         # the combine is a per-rank share: its gate gradients summed

@@ -11,6 +11,10 @@ prefill, stops its row too). Results return in submission order.
 The engine runs where the model lives; ``EngineConfig.seed`` seeds the
 ``torch.Generator`` of temperature sampling (its draws differ from the
 reference's ``jax.random``; greedy decoding is the same function).
+
+``Engine(..., tracer=Tracer(device))`` records the spans and counters
+that ``repro_torch.trace`` lists; the default ``OFF`` records nothing and
+adds no sync, event or kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.steps import make_decode_step
 from repro_torch.serve.scheduler import plan_waves
+from repro_torch.trace import OFF, Tracer, active
 
 
 @dataclasses.dataclass
@@ -35,9 +40,11 @@ class EngineConfig:
 
 
 class Engine:
-    def __init__(self, cfg: ModelConfig, model: M.LM, ecfg: EngineConfig):
+    def __init__(self, cfg: ModelConfig, model: M.LM, ecfg: EngineConfig,
+                 tracer: Optional[Tracer] = None):
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
         self.decode_fn = make_decode_step(cfg)
+        self.tracer = OFF if tracer is None else tracer
 
     def _sample(self, logits, gen: torch.Generator):
         if self.ecfg.temperature <= 0.0:
@@ -50,37 +57,50 @@ class Engine:
                  ) -> List[List[int]]:
         """Slot-batched generation. Prompts are queued; each wave prefills
         up to ``slots`` prompts padded to a common length."""
-        ecfg = self.ecfg
+        ecfg, tr = self.ecfg, self.tracer
         dev = self.model.device
         results: List[Optional[List[int]]] = [None] * len(prompts)
         gen = torch.Generator(device=dev).manual_seed(ecfg.seed)
-        for wave in plan_waves(range(len(prompts)), ecfg.slots):
-            plen = max(len(prompts[i]) for i in wave)
-            batch = np.zeros((len(wave), plen), np.int64)
-            for r, i in enumerate(wave):
-                batch[r, plen - len(prompts[i]):] = prompts[i]  # left-pad
-            cap = plen + max_new + 1
-            logits, cache = M.prefill(self.model, self.cfg,
-                                      tokens=torch.from_numpy(batch).to(dev),
-                                      pad_to=cap)
-            toks = [list(prompts[i]) for i in wave]
-            last = self._sample(logits, gen)
-            done = np.zeros(len(wave), bool)
-            for r, tok in enumerate(last.tolist()):
-                toks[r].append(tok)
-                if tok == ecfg.eos_id:
-                    done[r] = True       # EOS straight out of prefill
-            for t in range(max_new - 1):
-                if done.all():
-                    break
-                logits, cache = self.decode_fn(self.model, cache,
-                                               last[:, None], plen + t)
-                last = self._sample(logits, gen)
-                for r, tok in enumerate(last.tolist()):
-                    if not done[r]:
-                        toks[r].append(tok)
-                        if tok == ecfg.eos_id:
-                            done[r] = True
-            for r, i in enumerate(wave):
-                results[i] = toks[r]
+        with active(tr):
+            for wave in plan_waves(range(len(prompts)), ecfg.slots):
+                plen = max(len(prompts[i]) for i in wave)
+                batch = np.zeros((len(wave), plen), np.int64)
+                for r, i in enumerate(wave):
+                    batch[r, plen - len(prompts[i]):] = prompts[i]  # left-pad
+                real = sum(len(prompts[i]) for i in wave)
+                tr.count("prefill_tokens", real)
+                tr.count("prefill_pad_tokens", batch.size - real)
+                cap = plen + max_new + 1
+                tokens = torch.from_numpy(batch).to(dev)
+                with tr.span("prefill", device=True):
+                    logits, cache = M.prefill(self.model, self.cfg,
+                                              tokens=tokens, pad_to=cap)
+                toks = [list(prompts[i]) for i in wave]
+                with tr.span("sample"):
+                    last = self._sample(logits, gen)
+                with tr.span("sync"):
+                    first = last.tolist()
+                done = np.zeros(len(wave), bool)
+                for r, tok in enumerate(first):
+                    toks[r].append(tok)
+                    if tok == ecfg.eos_id:
+                        done[r] = True       # EOS straight out of prefill
+                for t in range(max_new - 1):
+                    if done.all():
+                        break
+                    tr.count("decode_steps", 1)
+                    with tr.span("decode_step", device=True):
+                        logits, cache = self.decode_fn(
+                            self.model, cache, last[:, None], plen + t)
+                    with tr.span("sample"):
+                        last = self._sample(logits, gen)
+                    with tr.span("sync"):
+                        step = last.tolist()
+                    for r, tok in enumerate(step):
+                        if not done[r]:
+                            toks[r].append(tok)
+                            if tok == ecfg.eos_id:
+                                done[r] = True
+                for r, i in enumerate(wave):
+                    results[i] = toks[r]
         return results  # type: ignore
